@@ -1,61 +1,47 @@
-"""TPU-native constant-potential molecular dynamics framework.
+"""Constant-potential molecular dynamics in JAX.
 
 A from-scratch re-design of the capabilities of srtee/lammps-USER-CONP2
-(constant-potential/charge/displacement electrodes for electrochemical MD)
-for TPU hardware: JAX/XLA/Pallas compute, dense-linear-algebra Ewald,
-jit-compiled MD loop, pjit/shard_map multi-chip scaling.
+(constant-potential/charge/displacement electrodes for electrochemical MD):
+JAX/XLA compute, dense-linear-algebra Ewald, jit-compiled MD loop,
+shard_map multi-device scaling.
 """
-
-__version__ = "0.1.0"
-
-
-def enable_compile_cache(path=None):
-    """Opt-in persistent XLA compilation cache.
-
-    Large-N step programs compile in minutes (the 100k-atom PPPM step is
-    ~8-16 min); the cache can make reruns near-instant.  NOT enabled by
-    default: CPU AOT cache entries record machine-feature flags and XLA
-    loads mismatched entries with only a warning ("could lead to SIGILL"),
-    so sharing one cache dir across backends/processes is unsafe to force
-    on every user.  Call this (or set CONP2_TPU_COMPILE_CACHE=path in the
-    environment) to opt in."""
-    import os
-
-    try:
-        import jax
-
-        if path is None:
-            path = os.environ.get("CONP2_TPU_COMPILE_CACHE", "")
-            if path.lower() in ("", "1", "true", "yes", "on"):
-                # boolean-style opt-in: use the repo-local default dir
-                path = os.path.join(
-                    os.path.dirname(os.path.abspath(__file__)),
-                    os.pardir, ".jax_cache")
-        # per-host subdirectory: XLA:CPU AOT entries bake machine features
-        # and a mismatched host warns "could lead to SIGILL"; stale
-        # cross-host TPU entries have produced hard UNIMPLEMENTED errors on
-        # cache READ (observed via tools/kernel_oracle.py).  Same-host
-        # reruns keep the full benefit.
-        import socket
-
-        path = os.path.join(os.path.abspath(path),
-                            socket.gethostname() or "host")
-        jax.config.update("jax_compilation_cache_dir", path)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:  # noqa: BLE001 — the cache is an optimization only
-        pass
-
 
 import os as _os
 
-if _os.environ.get("CONP2_TPU_COMPILE_CACHE"):
-    enable_compile_cache()
-del _os
+__version__ = "0.1.0"
+
+#: ``<checkout>/.jax_cache``: a fixed path, since the path is part of the
+#: cache key and a directory that moves never hits
+DEFAULT_CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+    ".jax_cache")
+
+
+def compile_cache_dir():
+    """The cache directory the entry points set, or None when
+    ``JAX_COMPILATION_CACHE_DIR`` is set (JAX then reads it itself and the
+    program sets no other)."""
+    if _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    return DEFAULT_CACHE_DIR
+
+
+def enable_compile_cache():
+    """Point JAX's persistent compilation cache at compile_cache_dir().
+    Called by the entry points (chip_smoke.py, bench.py, the CLI), never
+    at import.  Returns the directory set, or None."""
+    path = compile_cache_dir()
+    if path is not None:
+        import jax
+
+        jax.config.update("jax_compilation_cache_dir", path)
+    return path
+
 
 # Hoist large device-array constants (PPPM influence function, A^-1, cell
 # tables) out of the HLO into executable arguments — cuts the 100k-atom
-# program from ~150 MB of literal text to a few MB and the cold compile
-# with it.  Graceful no-op if the jax internals move (utils/hoistconst).
+# program from ~150 MB of literal text to a few MB.  Graceful no-op if the
+# jax internals move (utils/hoistconst).
 from .utils import hoistconst as _hoistconst
 
 _hoistconst.enable()

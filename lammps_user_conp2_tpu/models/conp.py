@@ -34,12 +34,6 @@ from .electrodes import (ConpContext, ElectrodeKernels, assemble_amatrix,
 from .system import System
 
 
-# below this many (Ne x N) row-pairs the XLA sweep wins (fusion + no grid
-# overhead; measured crossover on v5e: il 3.1M -> XLA faster, 33k-atom
-# 17M -> fused kernel 27% faster and no (Ne,N) HBM intermediates)
-PALLAS_ROWS_MIN_PAIRS = 8_000_000
-
-
 @dataclasses.dataclass(frozen=True)
 class ConpSolver:
     """Host wrapper holding static config + device context; the methods are
@@ -59,7 +53,7 @@ class ConpSolver:
     ee_diag: float               # <e,e> diagnostic
     solve_dtype: object = jnp.float64
     pppm_grid: object = None     # PPPMGrid when cfg.kspace is PPPM
-    fksp: object = None          # FactoredKSpace — MXU fast path for b
+    fksp: object = None          # FactoredKSpace — matmul fast path for b
     one_electrode: bool = False  # group1 == group2 (fix_conp.cpp:295)
     # z-plane fast path (ops/pppm.py electrode_zplanes): the electrode
     # stencils touch only these z mesh planes, so the b-vector readout skips
@@ -76,8 +70,8 @@ class ConpSolver:
         """True when the electrodes occupy rows [0, Ne) — the layout
         models.system.electrodes_first produces.  Every per-step electrode
         gather/scatter then lowers as a static slice (free under XLA
-        fusion) instead of a ~30-60 us TPU gather; the helpers below pick
-        the path at trace time."""
+        fusion) instead of a gather; the helpers below pick the path at
+        trace time."""
         e = np.asarray(self.ele_idx)
         return len(e) > 0 and int(e[0]) == 0 and int(e[-1]) == len(e) - 1
 
@@ -89,7 +83,7 @@ class ConpSolver:
 
     def _set_ele(self, q, vals):
         """q with the electrode rows replaced (slice-concat when contiguous
-        — a TPU scatter otherwise)."""
+        — a scatter otherwise)."""
         if self.ele_contig:
             return jnp.concatenate([vals.astype(q.dtype), q[self.ne:]])
         return q.at[jnp.asarray(self.ele_idx)].set(vals.astype(q.dtype))
@@ -108,21 +102,19 @@ class ConpSolver:
         branches return an identically-shaped cache.
 
         In factored-Ewald mode the cache is (axis_tables, Sr_elyte,
-        Si_elyte, zsort) — the per-step transcendental tables plus the
+        Si_elyte) — the per-step transcendental tables plus the
         electrolyte structure factor, shared with the force path the same
-        way, plus the (perm, z_sorted) ordering shared by every
-        slab-masked Pallas kernel in the step (ops/pallas/zorder.py)."""
+        way."""
         if self.pppm_grid is None:
             if self._ewald_cacheable():
                 from ..ops import ewald_factored as ewf
-                from ..ops.pallas.zorder import z_perm
                 dt = self.solve_dtype
                 x = x.astype(dt)
                 q = q.astype(dt)
                 q_elyte = jnp.where(jnp.asarray(self.elyte_mask), q, 0.0)
                 tabs = ewf.axis_tables(self.fksp, x)
                 sr, si = ewf.structure_factor_tab(tabs, q_elyte)
-                return (tabs, sr, si, z_perm(x, self.box, self.periodic))
+                return (tabs, sr, si)
             return None
         from ..ops import pppm as pppm_ops
         dt = self.solve_dtype
@@ -165,7 +157,6 @@ class ConpSolver:
         q_elyte = jnp.where(elyte, q, 0.0)
 
         kcache = None
-        zsort = None      # shared z-ordering for slab-masked Pallas kernels
         if self.pppm_grid is not None:
             # mesh path (PPPMCONP::b_cal, pppm_conp.cpp:269-316): spread the
             # electrolyte, Poisson-solve, stencil-gather at the electrodes.
@@ -189,7 +180,7 @@ class ConpSolver:
                 u = pppm_ops.poisson_u_from_k(grid, rhok_elyte)
                 b = -pppm_ops.gather(grid, u, xe)
         elif self.fksp is not None:
-            # factorized-Ewald fast path: 8 MXU matmuls instead of O(N*K)
+            # factorized-Ewald fast path: 8 matmuls instead of O(N*K)
             # transcendentals (ops/ewald_factored.py)
             from ..ops import ewald_factored as ewf
             if self._ewald_cacheable():
@@ -197,7 +188,7 @@ class ConpSolver:
                 # electrode readout slices rows, and (tabs, S_elyte) are
                 # returned for the force-path reuse invariant
                 kcache = self.elyte_kcache(x, q)
-                tabs, sr, si, zsort = kcache
+                tabs, sr, si = kcache
                 (pr, pi), (zr, zi) = tabs
                 tabs_e = ((self._ele_rows(pr), self._ele_rows(pi)),
                           (self._ele_rows(zr), self._ele_rows(zi)))
@@ -223,21 +214,6 @@ class ConpSolver:
                 self.elyte_mask, jnp.asarray(self.type_idx),
                 self.kernels.potential, g_ewald=g,
                 cut_coulsq=self.cut_coulsq)
-        elif (jax.default_backend() == "tpu" and dt == jnp.float32
-                and self.ne * x.shape[0] >= PALLAS_ROWS_MIN_PAIRS):
-            # fused electrode-row kernel (ops/pallas/ele_rows_kernel.py):
-            # the whole erfc/Gaussian chain in VMEM tiles
-            from ..ops.pallas.ele_rows_kernel import b_realspace_pallas
-            nt1 = self.kernels.eta_ij.shape[0]
-            ohc = (jnp.asarray(self.type_idx)[:, None]
-                   == jnp.arange(nt1)[None, :]).astype(dt)
-            b = b + b_realspace_pallas(
-                x, q_elyte, jnp.asarray(self.ele_idx),
-                jnp.asarray(self.elyte_mask, dt),
-                jnp.asarray(self.kernels.eta_ij[te], dt),
-                jnp.asarray(self.kernels.fo_ij[te], dt),
-                ohc, box=self.box, periodic=self.periodic,
-                cut_coulsq=self.cut_coulsq, g_ewald=g, zsort=zsort)
         else:
             dx = min_image(xe[:, None, :] - x[None, :, :],
                            jnp.asarray(self.box, dt), self.periodic)
@@ -442,7 +418,7 @@ def make_matfree_operator(fksp, xe, real_block, diag_extra, *, slabflag,
     the slab rank-1 term (4pi/V) z z^T.
 
     Nothing O(Ne^2) in k-space is ever formed; cost per apply is
-    O(Ne*(nxy+nz)) trig + O(Ne*nxy*nz) MXU flops.  The electrode phase
+    O(Ne*(nxy+nz)) trig + O(Ne*nxy*nz) matmul flops.  The electrode phase
     tables are hoisted out of the apply so CG iterations reuse them."""
     from ..ops import ewald_factored as ewf
     z = xe[:, 2]
@@ -489,9 +465,9 @@ def setup_conp(
     d vector, elesetq, cond gain.  Mirrors linalg_init/linalg_setup
     (fix_conp.cpp:393-464).
 
-    The setup linear algebra always runs on the host CPU in float64 (TPU
-    sessions run the per-step path in float32; the one-time inverse must not
-    lose precision), then the context is cast to ``solve_dtype``.
+    The setup linear algebra always runs on the host CPU in float64 (the
+    per-step path may run in float32; the one-time inverse must not lose
+    precision), then the context is cast to ``solve_dtype``.
     """
     cpu = jax.local_devices(backend="cpu")[0]
     with jax.enable_x64(True), jax.default_device(cpu):

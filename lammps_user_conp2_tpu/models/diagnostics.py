@@ -6,7 +6,7 @@ corrections, k-space mesh readout (or classic-Ewald equivalent), slab
 correction, all scaled by evscale (compute_potential_atom.cpp:181).
 
 nghosts (reference: compute_nghosts.cpp) counts LAMMPS ghost copies per
-atom; the TPU analogue counts the periodic images a 1-rank LAMMPS would
+atom; this analogue counts the periodic images a 1-rank LAMMPS would
 ghost — pure geometry, useful to sanity-check cutoff/box interplay.
 """
 

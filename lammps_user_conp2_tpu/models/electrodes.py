@@ -1,12 +1,12 @@
 """Electrode bookkeeping, A-matrix assembly, inversion + projection, d-vector.
 
-This is the TPU-native re-expression of FixConp's linear-algebra setup
+This is the re-expression of FixConp's linear-algebra setup
 (reference: fix_conp.cpp:426-464 linalg_setup; 777-861 a_cal; 932-980 inv;
 982-1067 inv_project; 609-637 b_setq_cal; 1071-1116 get_setq).
 
 Key simplifications enabled by the architecture:
   * electrode membership is static -> all index maps are fixed host arrays;
-  * the A matrix k-space block is two MXU matmuls (no parity checkerboard,
+  * the A matrix k-space block is two matmuls (no parity checkerboard,
     no MPI mirror: the dense ordered-pair computation IS the symmetrized
     matrix);
   * the inverse + electroneutrality projection run once on device in f64.
@@ -53,30 +53,20 @@ class ConpContext(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class ElectrodeKernels:
-    """Pair-mode polymorphism (fix_conp.h:91-94 member-function pointers).
-
-    ``eta_ij``/``fo_ij`` are the per-type-pair width/overlap tables that
-    define both modes in one parameterization (ETA is the EHGO formula with
-    uniform eta and fo=0) — consumed by the fused Pallas electrode-row
-    kernel (ops/pallas/ele_rows_kernel.py)."""
+    """Pair-mode polymorphism (fix_conp.h:91-94 member-function pointers)."""
     potential: Callable    # blist / b-vector kernel
     force: Callable        # post-force correction kernel
     potential_A: Callable  # A-matrix variant (eta/sqrt(2) in ETA mode)
     self_diag: np.ndarray  # (N,) per-atom A diagonal self term
-    eta_ij: np.ndarray     # (T+1, T+1) pairwise Gaussian widths
-    fo_ij: np.ndarray      # (T+1, T+1) overlap prefactors (0 in ETA mode)
 
 
 def make_kernels(cfg: ConpConfig, system: System) -> ElectrodeKernels:
     n = system.natoms
-    nt1 = system.ntypes + 1
     if cfg.pairmode is PairMode.ETA:
         pot, frc, pot_a = eta_pair_kernels(cfg.eta)
         # diagonal self term sqrt(2/pi)*eta (fix_conp.cpp:796-801)
         self_diag = np.full(n, math.sqrt(2.0) / MY_PIS * cfg.eta)
-        return ElectrodeKernels(pot, frc, pot_a, self_diag,
-                                eta_ij=np.full((nt1, nt1), cfg.eta),
-                                fo_ij=np.zeros((nt1, nt1)))
+        return ElectrodeKernels(pot, frc, pot_a, self_diag)
     # EHGO (fix_conp.cpp:803-810 diagonal u0_i)
     eh = cfg.ehgo
     evscale = system.units().evscale
@@ -85,8 +75,7 @@ def make_kernels(cfg: ConpConfig, system: System) -> ElectrodeKernels:
     pot, frc, pot_a = ehgo_pair_kernels(
         jnp.asarray(eta_ij), jnp.asarray(fo_ij), jnp.asarray(u0_i))
     self_diag = u0_i[system.type]
-    return ElectrodeKernels(pot, frc, pot_a, self_diag,
-                            eta_ij=eta_ij, fo_ij=fo_ij)
+    return ElectrodeKernels(pot, frc, pot_a, self_diag)
 
 
 def assemble_amatrix(

@@ -1,7 +1,7 @@
 """Velocity-Verlet integration with group Nose-Hoover chain thermostats.
 
 The reference delegates integration to LAMMPS (SURVEY.md section 0); this is
-the TPU-native substrate: pure functions over fixed-shape arrays, suitable
+the substrate here: pure functions over fixed-shape arrays, suitable
 for lax.scan.  Semantics follow LAMMPS fix nvt (Nose-Hoover chains, default
 tchain=3, MTK-less group thermostatting as used by the test decks
 `fix 1 sol nvt temp T T 100`): at each step

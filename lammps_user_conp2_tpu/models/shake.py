@@ -5,13 +5,13 @@ angle, tests/il_onelayer/input: ``fix bmishake bmi shake 0.0001 10 0 t 1 2 3
 b 1 2 a 1``), making each cation a rigid linear rotor.  Angle constraints
 become 1-3 distances via the law of cosines (LAMMPS shake3angle equivalent).
 
-TPU-first structure: constraints are grouped into their disjoint CLUSTERS
-(<=4 atoms, <=3 constraints — the LAMMPS shake cluster shapes) at setup.
-Each step gathers every cluster's atoms ONCE into an (M, K, 3) batch,
-iterates Gauss-Seidel over the <=3 constraint slots entirely in registers
-(one-hot column updates — no scatters inside the loop), and writes back
-once.  This replaces the naive per-constraint scatter loop, which on TPU
-costs ~100 sequential scatter ops per call.
+Constraints are grouped into their disjoint CLUSTERS (<=4 atoms, <=3
+constraints — the LAMMPS shake cluster shapes) at setup.  Each step
+gathers every cluster's atoms ONCE into an (M, K, 3) batch, iterates
+Gauss-Seidel over the constraint slots (one-hot column updates — no
+scatters inside the loop), and writes back once.  On a GPU the whole
+iteration runs as one Pallas-Triton kernel (ops/shake_kernel.py); the
+plain path below is its reference and runs everywhere else.
 """
 
 from __future__ import annotations
@@ -150,12 +150,8 @@ def _onehot_cols(idx, K, dtype):
     return (idx[..., None] == jnp.arange(K)[None, None, :]).astype(dtype)
 
 
-def _use_pallas(dtype) -> bool:
-    # the fused VMEM kernel (ops/pallas/shake_kernel.py) cuts the
-    # latency-bound iteration from ~1.4 ms to ~20 us on il_twolayer;
-    # Mosaic has no f64, so f64/CPU runs keep this XLA path
-    import jax as _jax
-    return _jax.default_backend() == "tpu" and dtype == jnp.float32
+def _on_gpu() -> bool:
+    return jax.default_backend() == "gpu"
 
 
 def shake_positions(cons: ShakeConstraints, x_new, x_old, dt, *, box, periodic,
@@ -163,13 +159,20 @@ def shake_positions(cons: ShakeConstraints, x_new, x_old, dt, *, box, periodic,
     """Correct x_new so constraints hold; returns (x, dv = (xc-x_new)/dt).
 
     Classic SHAKE with reference geometry from pre-drift positions; iterated
-    Gauss-Seidel over the cluster's constraint slots (registers only).
+    Gauss-Seidel over the cluster's constraint slots.
     """
-    if _use_pallas(x_new.dtype):
-        from ..ops.pallas.shake_kernel import shake_positions_pallas
-        return shake_positions_pallas(cons, x_new, x_old, dt, box=box,
+    if _on_gpu():
+        from ..ops.shake_kernel import shake_positions_triton
+        return shake_positions_triton(cons, x_new, x_old, dt, box=box,
                                       periodic=periodic, iters=iters,
                                       omega=omega)
+    return shake_positions_xla(cons, x_new, x_old, dt, box=box,
+                               periodic=periodic, iters=iters, omega=omega)
+
+
+def shake_positions_xla(cons: ShakeConstraints, x_new, x_old, dt, *, box,
+                        periodic, iters: int = 12, omega: float = 1.0):
+    """The plain-JAX SHAKE iteration (reference for the kernel)."""
     M, K = cons.atoms.shape
     C = cons.ci.shape[1]
     dtype = x_new.dtype
@@ -178,14 +181,15 @@ def shake_positions(cons: ShakeConstraints, x_new, x_old, dt, *, box, periodic,
     xo = x_old[cons.atoms]
     ohi = _onehot_cols(cons.ci, K, dtype)        # (M, C, K)
     ohj = _onehot_cols(cons.cj, K, dtype)
-    gi = jnp.take_along_axis  # shorthand
 
     def take(arr, idx):
         # arr (M,K,3), idx (M,) -> (M,3)
         return jnp.take_along_axis(arr, idx[:, None, None].repeat(3, -1), axis=1)[:, 0]
 
-    invmi = jnp.take_along_axis(cons.invm, cons.ci, axis=1)  # (M, C)
-    invmj = jnp.take_along_axis(cons.invm, cons.cj, axis=1)
+    invm = cons.invm.astype(dtype)
+    dist2 = cons.dist2.astype(dtype)
+    invmi = jnp.take_along_axis(invm, cons.ci, axis=1)  # (M, C)
+    invmj = jnp.take_along_axis(invm, cons.cj, axis=1)
     invm_sum = invmi + invmj
 
     # reference bond vectors (pre-drift), per constraint slot
@@ -198,7 +202,7 @@ def shake_positions(cons: ShakeConstraints, x_new, x_old, dt, *, box, periodic,
         for s in range(C):
             rn = min_image(take(xc, cons.ci[:, s]) - take(xc, cons.cj[:, s]),
                            boxj, periodic)
-            diff = jnp.sum(rn * rn, axis=1) - cons.dist2[:, s]
+            diff = jnp.sum(rn * rn, axis=1) - dist2[:, s]
             denom = 2.0 * invm_sum[:, s] * jnp.sum(rn * r_old[s], axis=1)
             lam = omega * diff / jnp.where(jnp.abs(denom) > 1e-12, denom, 1e-12)
             lam = jnp.where(cons.cmask[:, s], lam, 0.0)
@@ -219,10 +223,18 @@ def shake_positions(cons: ShakeConstraints, x_new, x_old, dt, *, box, periodic,
 def rattle_velocities(cons: ShakeConstraints, x, v, *, box, periodic,
                       iters: int = 12, omega: float = 1.0):
     """Project velocities onto the constraint manifold (sum v_ij . r_ij = 0)."""
-    if _use_pallas(v.dtype):
-        from ..ops.pallas.shake_kernel import rattle_velocities_pallas
-        return rattle_velocities_pallas(cons, x, v, box=box, periodic=periodic,
-                                        iters=iters, omega=omega)
+    if _on_gpu():
+        from ..ops.shake_kernel import rattle_velocities_triton
+        return rattle_velocities_triton(cons, x, v, box=box,
+                                        periodic=periodic, iters=iters,
+                                        omega=omega)
+    return rattle_velocities_xla(cons, x, v, box=box, periodic=periodic,
+                                 iters=iters, omega=omega)
+
+
+def rattle_velocities_xla(cons: ShakeConstraints, x, v, *, box, periodic,
+                          iters: int = 12, omega: float = 1.0):
+    """The plain-JAX RATTLE iteration (reference for the kernel)."""
     M, K = cons.atoms.shape
     C = cons.ci.shape[1]
     dtype = x.dtype
@@ -235,8 +247,9 @@ def rattle_velocities(cons: ShakeConstraints, x, v, *, box, periodic,
     def take(arr, idx):
         return jnp.take_along_axis(arr, idx[:, None, None].repeat(3, -1), axis=1)[:, 0]
 
-    invmi = jnp.take_along_axis(cons.invm, cons.ci, axis=1)
-    invmj = jnp.take_along_axis(cons.invm, cons.cj, axis=1)
+    invm = cons.invm.astype(dtype)
+    invmi = jnp.take_along_axis(invm, cons.ci, axis=1)
+    invmj = jnp.take_along_axis(invm, cons.cj, axis=1)
     invm_sum = invmi + invmj
     r = []
     denom = []

@@ -189,7 +189,7 @@ def reorder_atoms(system: System, perm: np.ndarray) -> System:
     perm[k]).  Topology indices are remapped; tags travel with their atoms,
     so tag-keyed I/O (dumps, rerun, zmirror pairing) is unaffected.  All
     physics is invariant under atom order — this exists purely to give the
-    device arrays a TPU-friendly layout (see electrodes_first)."""
+    device arrays a gather-free layout (see electrodes_first)."""
     perm = np.asarray(perm)
     n = len(perm)
     inv = np.empty(n, np.int64)
@@ -217,9 +217,9 @@ def electrodes_first(system: System) -> System:
 
     Why: every per-step electrode access (b-vector table rows, the A^-1
     matvec charge write, PPPM electrode re-spread) is a gather/scatter over
-    ``ele_idx``.  TPU gathers of a few hundred rows cost ~30-60 us each and
-    the step performs several; with the electrodes contiguous at the front
-    they all become static slices, which XLA fuses for free.  The reference
+    ``ele_idx``, and the step performs several; with the electrodes
+    contiguous at the front they all become static slices, which XLA fuses
+    for free.  The reference
     has the same idea in its ele2eleall/eleall2ele cross-maps
     (fix_conp.h:164-188) — ours is computed once, not per reneighbor."""
     ele = np.asarray(system.ele_mask)

@@ -5,7 +5,7 @@ placed at group1's coordinates mirrored through the z midplane
 (z' = 2*zlo + Lz - z, fix_zmirror.cpp:132/163/215), paired by tag offset
 (setup checks equal tag-contiguous ranges, fix_zmirror.cpp:63-95).
 
-TPU-native form: the tag pairing is a STATIC permutation computed once on
+Form here: the tag pairing is a STATIC permutation computed once on
 the host, so the whole fix is one gather + affine transform inside the
 jitted step — the reference's local-fast-path/Allgatherv machinery
 (fix_zmirror.cpp:153-220) has no equivalent cost here.

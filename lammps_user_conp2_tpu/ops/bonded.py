@@ -19,9 +19,9 @@ def bonded_forces(x, bonds, bond_coeffs, angles, angle_coeffs, *, box,
                   periodic):
     """Bond + angle forces with ONE combined scatter-add.
 
-    TPU scatters serialize; five separate .at[].add calls (2 bond + 3 angle)
-    cost ~0.5 ms at il scale.  Building all (row, contribution) pairs first
-    and scattering once cuts that to one pass.  Returns (f, e_bond+e_angle).
+    Instead of five separate .at[].add calls (2 bond + 3 angle), all
+    (row, contribution) pairs are built first and scattered in one pass.
+    Returns (f, e_bond+e_angle).
     """
     nb = bonds.shape[0]
     na = angles.shape[0]
@@ -67,62 +67,4 @@ def bonded_forces(x, bonds, bond_coeffs, angles, angle_coeffs, *, box,
         vals += [f1, f3, -(f1 + f3)]
     f = jnp.zeros_like(x).at[jnp.concatenate(rows)].add(
         jnp.concatenate(vals, axis=0))
-    return f, e
-
-
-def bond_forces(x, bonds, bond_coeffs, *, box, periodic):
-    """bonds: (NB,3) int [type, i, j]; coeffs: (ntypes+1, 2) [K, r0]."""
-    if bonds.shape[0] == 0:
-        return jnp.zeros_like(x), jnp.zeros((), x.dtype)
-    bt = bonds[:, 0]
-    i = bonds[:, 1]
-    j = bonds[:, 2]
-    k = bond_coeffs[bt, 0]
-    r0 = bond_coeffs[bt, 1]
-    dx = min_image(x[i] - x[j], jnp.asarray(box, x.dtype), periodic)
-    r = jnp.sqrt(jnp.sum(dx * dx, axis=-1))
-    dr = r - r0
-    e = jnp.sum(k * dr * dr)
-    # F_i = -dE/dx_i = -2 K dr * dx/r
-    fmag = jnp.where(r > 0, -2.0 * k * dr / r, 0.0)
-    fij = fmag[:, None] * dx
-    f = jnp.zeros_like(x)
-    f = f.at[i].add(fij)
-    f = f.at[j].add(-fij)
-    return f, e
-
-
-def angle_forces(x, angles, angle_coeffs, *, box, periodic):
-    """angles: (NA,4) int [type, i, j, k] (j = central); coeffs [K, theta0_deg]."""
-    if angles.shape[0] == 0:
-        return jnp.zeros_like(x), jnp.zeros((), x.dtype)
-    at = angles[:, 0]
-    i, j, k = angles[:, 1], angles[:, 2], angles[:, 3]
-    ka = angle_coeffs[at, 0]
-    t0 = angle_coeffs[at, 1] * (math.pi / 180.0)
-    boxj = jnp.asarray(box, x.dtype)
-    d1 = min_image(x[i] - x[j], boxj, periodic)   # j->i
-    d2 = min_image(x[k] - x[j], boxj, periodic)   # j->k
-    r1sq = jnp.sum(d1 * d1, axis=-1)
-    r2sq = jnp.sum(d2 * d2, axis=-1)
-    r1 = jnp.sqrt(r1sq)
-    r2 = jnp.sqrt(r2sq)
-    c = jnp.sum(d1 * d2, axis=-1) / (r1 * r2)
-    c = jnp.clip(c, -1.0, 1.0)
-    # LAMMPS angle_harmonic guards sin near zero (SMALL=0.001)
-    s = jnp.sqrt(jnp.maximum(1.0 - c * c, 0.0))
-    s = jnp.maximum(s, 0.001)
-    theta = jnp.arccos(c)
-    dtheta = theta - t0
-    e = jnp.sum(ka * dtheta * dtheta)
-    a = -2.0 * ka * dtheta / s
-    a11 = a * c / r1sq
-    a12 = -a / (r1 * r2)
-    a22 = a * c / r2sq
-    f1 = a11[:, None] * d1 + a12[:, None] * d2
-    f3 = a22[:, None] * d2 + a12[:, None] * d1
-    f = jnp.zeros_like(x)
-    f = f.at[i].add(f1)
-    f = f.at[k].add(f3)
-    f = f.at[j].add(-(f1 + f3))
     return f, e

@@ -1,8 +1,8 @@
 """Cell-list pair interactions for large N (beyond the reference's scales).
 
 The dense all-pairs path (ops/pairs.py) is optimal up to ~10^4 atoms; past
-that the O(N^2) sweep loses to a cell list.  This is a jit-static, TPU-shaped
-cell list:
+that the O(N^2) sweep loses to a cell list.  This is a jit-static cell
+list:
 
   * cells of edge >= cutoff; atoms binned and sorted by cell id (one sort),
   * fixed per-cell capacity (host-estimated; overflow detected and reported),
@@ -142,8 +142,7 @@ def cell_slab_tables(grid: CellGrid, x, q, type_idx):
     (id << TYPE_BITS) | type, overflow).  Built with ONE (C*cap)-row gather
     each; the sweep then reads candidates as whole-cell SLABS (27 contiguous
     (cap, .) blocks per cell) -- ~cap x fewer gather descriptors than the
-    per-atom-id candidate matrix (TPU gathers cost ~per descriptor, not per
-    element)."""
+    per-atom-id candidate matrix."""
     n = x.shape[0]
     dtype = x.dtype
     table, _cell, overflow = bin_atoms(grid, x)
@@ -228,8 +227,8 @@ def sweep_cell_slabs(grid: CellGrid, tables: PairTables, xq, pt,
         rsq_safe = jnp.where(mask, rsq, 1.0)
         r2inv = 1.0 / rsq_safe
         r6inv = r2inv * r2inv * r2inv
-        # per-pair LJ coefficients via one-hot batched matmuls -- a (B,cap,m)
-        # vector gather would dominate the whole kernel on TPU
+        # per-pair LJ coefficients via one-hot batched matmuls instead of a
+        # (B,cap,m) gather
         ohj = (tj[:, :, None] == jnp.arange(nt1)[None, None, :]).astype(dtype)
         ein = lambda tab: jnp.einsum("bit,bjt->bij", tab[ti], ohj,
                                      precision=hp)
@@ -266,7 +265,7 @@ def cell_pair_forces(grid: CellGrid, x, q, type_idx, tables: PairTables,
 
     Cell-blocked formulation: per cell, its atoms (cap) interact with the
     27 neighbor cells' atoms (27*cap) as a DENSE tile — gathers are O(N*28)
-    elements (TPU vector gathers are the bottleneck, not flops), the pair
+    elements, the pair
     math is fused elementwise over (cell_block, cap, 27*cap) tiles, and the
     result scatters back through the sort permutation once.
 

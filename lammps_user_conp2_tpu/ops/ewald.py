@@ -1,4 +1,4 @@
-"""TPU-native classic Ewald summation.
+"""Classic Ewald summation.
 
 Replaces the reference's KSpaceModuleEwald (reference: km_ewald.cpp) with a
 dense-linear-algebra formulation:
@@ -7,12 +7,12 @@ dense-linear-algebra formulation:
     accuracy-driven kmax search (reference: km_ewald.cpp:97-113, rms at
     km_ewald.cpp:277-283) and Green's-function weights
     ``ug_k = (4 pi / V) exp(-k^2/4g^2)/k^2`` (reference: km_ewald.cpp:366-381).
-  * per-atom trig tables cos(k.x), sin(k.x) are computed directly on the VPU
-    (no recurrences -- the reference's cos/sin recurrences
-    (km_ewald.cpp:446-476) are a CPU trick; on TPU a fused transcendental over
-    an (N, K) phase matrix produced by an (N,3)@(3,K) MXU matmul is faster),
+  * per-atom trig tables cos(k.x), sin(k.x) are computed directly (no
+    recurrences -- the reference's cos/sin recurrences (km_ewald.cpp:446-476)
+    are a CPU trick; here a fused transcendental over an (N, K) phase matrix
+    produced by an (N,3)@(3,K) matmul),
   * structure factors, b-vectors and the k-space block of the A matrix are
-    MXU matmuls over the k axis (reference equivalents: km_ewald.cpp:668-786
+    matmuls over the k axis (reference equivalents: km_ewald.cpp:668-786
     sincos_b + MPI_Allreduce -> here one matmul (+psum when sharded);
     km_ewald.cpp:584-666 aaa_from_sincos_a parity checkerboard -> one
     C diag(2u) C^T + S diag(2u) S^T).

@@ -1,8 +1,8 @@
-"""Factorized Ewald: the MXU-native fast path.
+"""Factorized Ewald: the matmul fast path.
 
 The reference's lowmem mode factorizes trig tables as xy * z products
 (km_ewald.cpp:360-363, kz_expand at 533-558) to save CPU memory.  Taken to
-its logical TPU conclusion, the same factorization e^{ik.r} =
+its logical conclusion, the same factorization e^{ik.r} =
 e^{i(kx x + ky y)} * e^{i kz z} turns EVERY k-space sum into dense complex
 matmuls over (N, nxy) x (nxy, nz) tables:
 
@@ -12,8 +12,9 @@ matmuls over (N, nxy) x (nxy, nz) tables:
     phi(points)  = sum 2 ug Re[S conj(Pe) conj(Ze)]     [b-vector readout]
 
 with P (N, nxy), Z (N, nz) built from O(N*(kxmax+kymax+kzmax))
-transcendentals.  Per-step cost drops from O(N*K) transcendentals (VPU) to
-O(N*nxy*nz) MXU flops — a >100x speedup at slab-geometry K counts.
+transcendentals.  Per-step cost drops from O(N*K) transcendentals to
+O(N*nxy*nz) matmul flops — far fewer operations at slab-geometry K
+counts.
 
 The (kxy, kz) grid covers exactly the same half-space set as
 ops.ewald.setup_ewald (excluded combinations get ug=0), so results are
@@ -175,8 +176,8 @@ def structure_factor_f(fk: FactoredKSpace, x, q):
 
 
 def structure_factor_fkv(x, q, kxy, kz, unitk):
-    # HIGHEST matmul precision: TPU default is bf16 passes, which injects
-    # ~1e-3 relative error into the charge solve
+    # HIGHEST matmul precision: a reduced-precision default (TF32 on a GPU)
+    # injects ~1e-3 relative error into the charge solve
     mm = lambda a, b: jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
     if len(kxy) > KXY_CHUNK:
         return _structure_factor_chunked(x, q, kxy, kz, unitk)

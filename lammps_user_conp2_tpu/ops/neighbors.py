@@ -40,11 +40,9 @@ class NeighborList(NamedTuple):
 
     The optional block fields (None unless NeighborConfig.block > 0) hold
     the BLOCK (cluster) form of the same list: i-blocks of B cell-sorted
-    atoms share one j-union row of width U.  TPU gather cost is
-    descriptor-count-bound at ~2.2 ns/descriptor (tools/exp_gather_chunk.py),
-    so the per-step sweep gather drops from N*K to (N/B)*U descriptors
-    (5.56M -> 1.6M at the 100k config, B=8) for ~1.8x more masked pair
-    slots — measured 1.8x faster end-to-end (tools/exp_block_sweep.py)."""
+    atoms share one j-union row of width U, so the per-step sweep gather
+    drops from N*K to (N/B)*U rows (5.56M -> 1.6M at the 100k config, B=8)
+    for ~1.8x more masked pair slots."""
     idx: jnp.ndarray        # (N, K) neighbor atom ids, padded with N
     x_ref: jnp.ndarray      # (N, 3) positions at build time
     lj: jnp.ndarray         # (4, N, K) pre-gathered lj1/lj2/lj3/lj4 pairs
@@ -174,16 +172,15 @@ def build_neighbor_list(ncfg: NeighborConfig, x, tables: PairTables,
     ``(id << 5) | type``; an ascending lax.sort brings the in-range
     candidates to the front of each row, and the selected ids AND neighbor
     types decode straight out of the sorted keys.  This replaces the
-    previous top_k + take_along_axis + (N, K) table gathers, which were
-    ~10x the cost of the distance sweep itself on TPU (gathers with (N, K)
-    index arrays are the slow path — CLAUDE.md); the LJ coefficient pairs
-    are then accumulated per type with dense masked FMAs, no gathers.
+    previous top_k + take_along_axis + (N, K) table gathers; the LJ
+    coefficient pairs are then accumulated per type with dense masked
+    FMAs, no gathers.
 
     ATOM-MAJOR: the candidate sweep and the compaction sort run on
     (N, 27*cap) rows — one row per REAL atom — not on the (C*cap, 27*cap)
     cell-slot layout, which is padded cap/mean-occupancy ~ 2.5-5x at
-    production densities and made the rebuild HBM-traffic-bound (100k:
-    227 ms, ~75 ms rsq sweep + ~143 ms sort, both on mostly-pad rows).
+    production densities and made the rebuild memory-traffic-bound (both
+    the rsq sweep and the sort ran on mostly-pad rows).
     Cell-major candidate tables are built once with slab gathers (27
     descriptors per cell); each atom then row-gathers its cell's candidate
     row (N descriptors total).  Chunked over row blocks (lax.scan) to
@@ -240,8 +237,7 @@ def build_neighbor_list(ncfg: NeighborConfig, x, tables: PairTables,
     sk = sks.reshape(-1, k)[:n]
     # block mode: the sweep reads bcr/btu, never the per-atom LJ planes —
     # skip building them ((4, N, K) is ~90 MB at the 100k config, and every
-    # carried byte is copied through the per-step reneighbor lax.cond:
-    # measured ~13 ms/step of pure cond overhead with them in)
+    # carried byte is copied through the per-step reneighbor lax.cond)
     nlist = _decode_list(ncfg, x, sk, overflow | jnp.any(ovfs),
                          type_idx, tables, build_lj=not ncfg.block)
     if ncfg.block:
@@ -305,8 +301,7 @@ def _attach_block_list(ncfg: NeighborConfig, x, nlist: NeighborList, cell,
     # LJ coefficient rows + union types; the (4, NB, B, U) pre-typed planes
     # are NOT materialized — at 100k they are ~240 MB of resident state and
     # per-step HBM stream where the per-type masked FMA the sweep needs is
-    # 4*nt cheap VPU passes.  Both the Mosaic kernel and the XLA fallback
-    # expand them on the fly.
+    # 4*nt cheap elementwise passes, expanded on the fly.
     dtype = x.dtype
     ti = jnp.asarray(type_idx)
     c_at = jnp.stack([tables.lj1[ti], tables.lj2[ti],
@@ -488,9 +483,8 @@ def nlist_pair_forces(ncfg: NeighborConfig, nlist: NeighborList, x, q,
     n = x.shape[0]
     dtype = x.dtype
     idx = nlist.idx
-    # ONE packed (N, K)-row gather for positions AND charges — TPU gather
-    # cost scales with descriptor count, so two separate gathers through
-    # the same index matrix pay twice
+    # ONE packed (N, K)-row gather for positions AND charges — two separate
+    # gathers through the same index matrix would read the indices twice
     sentinel = jnp.asarray([[1e6, 1e6, 1e6, 0.0]], dtype)
     xqp = jnp.concatenate(
         [jnp.concatenate([x, q[:, None].astype(dtype)], axis=1), sentinel],
@@ -531,33 +525,21 @@ def nlist_pair_forces(ncfg: NeighborConfig, nlist: NeighborList, x, q,
 
 def block_pair_forces(ncfg: NeighborConfig, nlist: NeighborList, x, q,
                       type_idx, tables: PairTables, exclusions, *,
-                      g_ewald, qqr2e, use_pallas=None, interpret=False,
-                      conp_fuse=None):
+                      g_ewald, qqr2e):
     """LJ + real-space Coulomb from the BLOCK form of the list — same
     returns (and the same pair set, hence roundoff-level identical physics)
     as nlist_pair_forces.  The hot gather is (NB, U) union rows instead of
-    (N, K) per-atom rows: ~3.5x fewer descriptors at B=8, which is the
-    whole cost on TPU (descriptor-bound at ~2.2 ns each,
-    tools/exp_gather_chunk.py); the masked pair chain runs on
-    (NB, B, U) = N*U slots.  Each pair still appears in both atoms' blocks,
-    so energies carry the full-list 0.5.  Reference analogue: the same
-    half/full neighbor-list sweeps (fix_conp.cpp:1242-1276) — blocking is
-    the TPU-native replacement for LAMMPS's per-atom jlist walk.
-
-    ``use_pallas`` (auto: float32 on TPU): run the masked (NB, B, U) chain
-    in a VMEM-resident Mosaic kernel (ops/pallas/block_pair.py) — in XLA
-    the chain's HBM intermediates eat the whole descriptor saving."""
+    (N, K) per-atom rows: ~3.5x fewer gathered rows at B=8; the masked
+    pair chain runs on (NB, B, U) = N*U slots.  Each pair still appears in
+    both atoms' blocks, so energies carry the full-list 0.5.  Reference
+    analogue: the same half/full neighbor-list sweeps
+    (fix_conp.cpp:1242-1276) — blocking is the gather-friendly replacement
+    for LAMMPS's per-atom jlist walk."""
     n = x.shape[0]
-    un, rows, binv = nlist.bun, nlist.brows, nlist.binv
-    out = _block_sweep(
-        ncfg, x, q, un, rows, nlist.bcr, nlist.btu, n,
-        g_ewald=g_ewald, qqr2e=qqr2e, use_pallas=use_pallas,
-        interpret=interpret, conp_fuse=conp_fuse)
-    if conp_fuse is not None:
-        f_slots, selj, secoul, secorr = out
-    else:
-        f_slots, selj, secoul = out
-    f = f_slots[binv]
+    f_slots, selj, secoul = _block_sweep(
+        ncfg, x, q, nlist.bun, nlist.brows, nlist.bcr, nlist.btu, n,
+        g_ewald=g_ewald, qqr2e=qqr2e)
+    f = f_slots[nlist.binv]
     ev = 0.5 * selj
     ec = 0.5 * secoul
     df, dev, dec = exclusion_correction(
@@ -567,68 +549,23 @@ def block_pair_forces(ncfg: NeighborConfig, nlist: NeighborList, x, q,
     f = jnp.where(ov, jnp.nan, f + df)
     ev = jnp.where(ov, jnp.nan, ev + dev)
     ec = jnp.where(ov, jnp.nan, ec + dec)
-    if conp_fuse is not None:
-        # full-list double counting: each (ele, elyte) pair appeared in
-        # both atoms' rows
-        ecorr = jnp.where(ov, jnp.nan, 0.5 * secorr)
-        return f, ev, ec, ecorr, ov
     return f, ev, ec, ov
 
 
 def _block_sweep(ncfg: NeighborConfig, x, q, un, rows, bcr, btu, n, *,
-                 g_ewald, qqr2e, use_pallas=None, interpret=False,
-                 conp_fuse=None):
+                 g_ewald, qqr2e):
     """Core of the block sweep on the GIVEN block rows: returns
-    (f_slots (NB*B, 3) in slot order, sum_elj, sum_ecoul[, sum_ecorr]) —
-    the caller applies binv, the full-list 0.5, and the exclusion
-    correction.  Shared by block_pair_forces (all blocks) and
-    block_pair_rows (a device's contiguous block slice in the sharded
-    engine).
-
-    ``conp_fuse``: optional (ele_f (N,), ely_f (N,), eta_tab, fo_tab) —
-    fold the CONP Gaussian correction (fix_conp.cpp:1368-1444) into the
-    same sweep: the slot forces come back correction-inclusive plus a 4th
-    raw double-counted energy sum.  On the Mosaic path the second chain is
-    gated per grid step (cell-sorted electrodes concentrate in few
-    blocks); the XLA fallback pays it on every slot — it exists for
-    interpret-mode parity, production XLA configs keep the separate
-    O(Ne*K) row correction."""
+    (f_slots (NB*B, 3) in slot order, sum_elj, sum_ecoul) — the caller
+    applies binv, the full-list 0.5, and the exclusion correction.  Shared
+    by block_pair_forces (all blocks) and block_pair_rows (a device's
+    contiguous block slice in the sharded engine)."""
     dtype = x.dtype
-    fuse = conp_fuse is not None
-    cols = [x, q[:, None].astype(dtype)]
-    sent = [1e6, 1e6, 1e6, 0.0]
     nt1 = bcr.shape[-1]
-    if fuse:
-        ele_f, ely_f, eta_tab, fo_tab, type_idx = conp_fuse
-        # ONE packed flag channel: +1 electrode / -1 electrolyte / 0
-        # neither — a correction pair is exactly a negative flag product
-        cols.append((jnp.asarray(ele_f, dtype)
-                     - jnp.asarray(ely_f, dtype))[:, None])
-        sent += [0.0]
     xqp = jnp.concatenate(
-        [jnp.concatenate(cols, axis=1),
-         jnp.asarray([sent], dtype)], axis=0)
-    xqu = xqp[un]                                        # (NB, U, C) THE gather
-    xqi = xqp[rows]                                      # (NB, B, C)
-    if fuse:
-        # append the block atoms' eta/fo type rows to the coefficient
-        # planes (same per-row layout as the LJ planes; pad atoms get the
-        # type-0 row, masked out by the flag channels anyway)
-        tp1 = jnp.pad(jnp.asarray(type_idx), (0, 1)).astype(jnp.int32)
-        tr_rows = tp1[rows]                              # (NB, B)
-        er = jnp.asarray(eta_tab, dtype)[tr_rows]        # (NB, B, nt1)
-        fr = jnp.asarray(fo_tab, dtype)[tr_rows]
-        bcr = jnp.concatenate([bcr.astype(dtype), er[None], fr[None]],
-                              axis=0)
-    if use_pallas is None:
-        use_pallas = (dtype == jnp.float32
-                      and jax.default_backend() == "tpu")
-    if use_pallas:
-        from .pallas.block_pair import block_pair_pallas
-        return block_pair_pallas(
-            xqu, xqi, un, rows, bcr, btu, box=ncfg.grid.box,
-            periodic=ncfg.grid.periodic, cutoff=ncfg.cutoff,
-            g_ewald=g_ewald, qqr2e=qqr2e, npts=n, interpret=interpret)
+        [jnp.concatenate([x, q[:, None].astype(dtype)], axis=1),
+         jnp.asarray([[1e6, 1e6, 1e6, 0.0]], dtype)], axis=0)
+    xqu = xqp[un]                                        # (NB, U, 4) THE gather
+    xqi = xqp[rows]                                      # (NB, B, 4)
     boxj = jnp.asarray(ncfg.grid.box, dtype)
     d = min_image(xqi[:, :, None, :3] - xqu[:, None, :, :3], boxj,
                   ncfg.grid.periodic)
@@ -656,44 +593,12 @@ def _block_sweep(ncfg: NeighborConfig, x, q, un, rows, bcr, btu, n, *,
     fcoul = jnp.where(mask, pref * (erfc + EWALD_F * grij * expm2), 0.0)
     ecoul = jnp.where(mask, pref * erfc, 0.0)
     fpair = flj + fcoul * r2inv
-    if not fuse:
-        f_slots = jnp.sum(fpair[..., None] * d, axis=2).reshape(-1, 3)
-        return f_slots, jnp.sum(elj), jnp.sum(ecoul)
-    # XLA twin of the fused correction chain (pair_kernel.py fused path
-    # math; ERFC_MAX-gated exactly like the Mosaic kernel)
-    from .erfc import ERFC_MAX
-    etap = jnp.zeros(rsq.shape, dtype)
-    fop = jnp.zeros(rsq.shape, dtype)
-    for t in range(nt1):
-        mask_t = (btu == t).astype(dtype)[:, None, :]
-        etap = etap + mask_t * bcr[4, :, :, t][:, :, None]
-        fop = fop + mask_t * bcr[5, :, :, t][:, :, None]
-    cm = mask & ((xqi[:, :, None, 4] * xqu[:, None, :, 4]) < 0.0)
-    e2 = etap * etap * rsq_safe
-    ghalf = jnp.exp(-0.5 * e2)
-    em2 = ghalf * ghalf
-    safe = jnp.maximum(e2, 1e-30)
-    rs = jax.lax.rsqrt(safe)
-    ar = safe * rs
-    t2 = 1.0 / (1.0 + EWALD_P * ar)
-    erfcr = (t2 * (A1 + t2 * (A2 + t2 * (A3 + t2 * (A4 + t2 * A5))))
-             * em2 * rs)
-    inmax = e2 < ERFC_MAX ** 2
-    erfcr = jnp.where(inmax, erfcr, 0.0)
-    gexp = fop * ghalf
-    ekc = gexp - erfcr * etap
-    ferfcr = jnp.where(inmax, erfcr + EWALD_F * em2, 0.0)
-    fkc = e2 * gexp - ferfcr * etap
-    cpref = qqr2e * xqi[:, :, None, 3] * xqu[:, None, :, 3]
-    ecp = jnp.where(cm, cpref * ekc, 0.0)
-    fcp = jnp.where(cm, cpref * fkc, 0.0) * r2inv
-    f_slots = jnp.sum((fpair + fcp)[..., None] * d, axis=2).reshape(-1, 3)
-    return f_slots, jnp.sum(elj), jnp.sum(ecoul), jnp.sum(ecp)
+    f_slots = jnp.sum(fpair[..., None] * d, axis=2).reshape(-1, 3)
+    return f_slots, jnp.sum(elj), jnp.sum(ecoul)
 
 
 def block_pair_rows(ncfg: NeighborConfig, nlist: NeighborList, x, q, b0,
-                    nb_l, *, g_ewald, qqr2e, use_pallas=None,
-                    interpret=False, conp_fuse=None):
+                    nb_l, *, g_ewald, qqr2e):
     """Block sweep over the contiguous block slice [b0, b0 + nb_l) — the
     sharded engine's per-device share of block_pair_forces (the same pair
     set and math; km_ewald_split.cpp shares ALL of km_ewald's optimized
@@ -701,23 +606,13 @@ def block_pair_rows(ncfg: NeighborConfig, nlist: NeighborList, x, q, b0,
     device multiple first (pad_block_list), all_gathers the returned slot
     forces, applies nlist.binv and the replicated exclusion correction,
     and psums the energy partials (which carry the full-list 0.5
-    already).
-
-    ``conp_fuse``: as in block_pair_forces — the CONP Gaussian correction
-    rides the same sweep (correction forces land in the slot forces; a
-    fourth per-device 0.5*secorr partial is returned for the caller to
-    psum)."""
+    already)."""
     def sl(a, axis=0):
         return jax.lax.dynamic_slice_in_dim(a, b0, nb_l, axis=axis)
 
-    out = _block_sweep(
+    f_slots, selj, sec = _block_sweep(
         ncfg, x, q, sl(nlist.bun), sl(nlist.brows), sl(nlist.bcr, axis=1),
-        sl(nlist.btu), x.shape[0], g_ewald=g_ewald, qqr2e=qqr2e,
-        use_pallas=use_pallas, interpret=interpret, conp_fuse=conp_fuse)
-    if conp_fuse is not None:
-        f_slots, selj, sec, secorr = out
-        return f_slots, 0.5 * selj, 0.5 * sec, 0.5 * secorr
-    f_slots, selj, sec = out
+        sl(nlist.btu), x.shape[0], g_ewald=g_ewald, qqr2e=qqr2e)
     return f_slots, 0.5 * selj, 0.5 * sec
 
 

@@ -1,9 +1,9 @@
 """Dense real-space pair interactions (LJ + Coulomb/long + CONP corrections).
 
-TPU-first design note: the reference consumes LAMMPS half neighbor lists
-(fix_conp.cpp:1209-1444).  At the test-suite scales (400-8000 atoms) an
-all-pairs (N x N) masked formulation is faster on TPU than any sparse list:
-the distance matrix is one MXU-friendly batched op, masks fuse into the
+Design note: the reference consumes LAMMPS half neighbor lists
+(fix_conp.cpp:1209-1444).  At the test-suite scales (400-8000 atoms) this
+uses an all-pairs (N x N) masked formulation instead of a sparse list:
+the distance matrix is one dense batched op, masks fuse into the
 elementwise chain, and there is no dynamic shape anywhere.  We block over
 rows (lax.scan single-device; one row-shard per device under shard_map) to
 bound memory at (block x N).
@@ -34,6 +34,10 @@ import numpy as np
 
 from .erfc import EWALD_F, ERFC_MAX, erfc_as, erfcr_sqrt, ferfcr_sqrt
 
+# force reductions stay in float32: a GPU's default TF32 contraction keeps
+# ~3 decimal digits, far too few for sums over cancelling LJ-wall terms
+_HP = jax.lax.Precision.HIGHEST
+
 
 def min_image(dx, box, periodic):
     """Minimum-image displacement for an orthogonal box.
@@ -54,8 +58,8 @@ class PairTables(NamedTuple):
     """Static per-type tables, prepared on host.
 
     ``onehot`` (N, nt+1) turns per-pair (itype, jtype) table lookups into
-    (B, nt+1) @ (nt+1, N) MXU matmuls — a TPU vector-gather over (B, N)
-    indices is ~100x slower than the equivalent one-hot contraction."""
+    (B, nt+1) @ (nt+1, N) matmuls instead of a gather over (B, N)
+    indices."""
     lj1: jnp.ndarray   # 48 eps sig^12 (force)  (nt+1, nt+1)
     lj2: jnp.ndarray   # 24 eps sig^6
     lj3: jnp.ndarray   # 4 eps sig^12 (energy)
@@ -130,7 +134,8 @@ def pair_rowblock(xi, qi, ti, exi, exv, rowvalid, i0, x, q, type_idx, tables, *,
     fcoul = jnp.where(inrange, fcoul, 0.0)
     ecoul_pair = jnp.where(inrange, ecoul_pair, 0.0)
     fpair = flj + fcoul * r2inv             # F/r
-    f_rows = jnp.einsum("bn,bnc->bc", fpair, dx)
+    f_rows = jnp.einsum("bn,bnc->bc", fpair, dx,
+                        precision=_HP)
     return f_rows, 0.5 * jnp.sum(elj), 0.5 * jnp.sum(ecoul_pair)
 
 
@@ -194,7 +199,8 @@ def conp_correction_rowblock(xi, qi, ti, ei, rowvalid, x, q, is_ele,
     forcecoul = jnp.where(mask, prefactor * fk, 0.0)
     epair = jnp.where(mask, prefactor * ek, 0.0)
     fpair = forcecoul / rsq_safe
-    f_rows = jnp.einsum("bn,bnc->bc", fpair, dx)
+    f_rows = jnp.einsum("bn,bnc->bc", fpair, dx,
+                        precision=_HP)
     return f_rows, 0.5 * jnp.sum(epair)
 
 
@@ -230,8 +236,8 @@ def conp_correction_forces(
         forcecoul = jnp.where(mask, prefactor * fk, 0.0)
         epair = jnp.where(mask, prefactor * ek, 0.0)
         fpair = forcecoul / rsq_safe
-        f_rows = jnp.einsum("en,enc->ec", fpair, dx)
-        f_cols = -jnp.einsum("en,enc->nc", fpair, dx)
+        f_rows = jnp.einsum("en,enc->ec", fpair, dx, precision=_HP)
+        f_cols = -jnp.einsum("en,enc->nc", fpair, dx, precision=_HP)
         f = f_cols.at[ele_idx].add(f_rows)
         return f, jnp.sum(epair)
 
@@ -282,8 +288,8 @@ def ehgo_pair_kernels(eta_ij: jnp.ndarray, fo_ij: jnp.ndarray, u0_i: jnp.ndarray
     nt1 = eta_ij.shape[0]
 
     def lookup(tab, itype, jtype):
-        # (R,1) x (1,N) index pattern -> one-hot MXU contraction instead of
-        # a (R,N) vector gather (the gather costs tens of ms on TPU)
+        # (R,1) x (1,N) index pattern -> one-hot contraction instead of
+        # a (R,N) gather
         if (hasattr(itype, "ndim") and hasattr(jtype, "ndim")
                 and itype.ndim == 2 and jtype.ndim == 2
                 and itype.shape[1] == 1 and jtype.shape[0] == 1):

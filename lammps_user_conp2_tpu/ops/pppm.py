@@ -1,4 +1,4 @@
-"""TPU-native PPPM (mesh Ewald): B-spline spread, FFT Poisson, ik forces.
+"""PPPM (mesh Ewald): B-spline spread, FFT Poisson, ik forces.
 
 Re-expression of the reference's pppm/conp path (pppm_conp.cpp):
 
@@ -11,9 +11,8 @@ Re-expression of the reference's pppm/conp path (pppm_conp.cpp):
   * the optimized influence function (Hockney-Eastwood, LAMMPS
     compute_gf_ik) is precomputed on host with explicit Brillouin sums;
   * spread/gather are order-p B-spline stencils over static (N, p^3) index
-    arrays — XLA scatter-add/gather (a Pallas kernel can replace them later);
-  * Poisson solve + ik differentiation are jnp.fft.fftn calls — XLA's native
-    sharded-FFT path on TPU.
+    arrays — XLA scatter-add/gather;
+  * Poisson solve + ik differentiation are jnp.fft.fftn calls.
 
 Deviation from the reference, documented: for slab runs LAMMPS places its
 z-grid using the *physical* zprd in the error estimate while the mesh spans
@@ -329,8 +328,8 @@ def _dev_greens(grid: PPPMGrid, nzh: int, rdt):
 
     At production grids this is the largest table in the step program
     (31 MB at the 100k bench config) and it appears in both the solve and
-    the force path; as an embedded HLO literal it dominated the >20 min
-    round-3 cold compile (utils/hoistconst has the mechanism)."""
+    the force path; as an embedded HLO literal it dominates the cold
+    compile (utils/hoistconst has the mechanism)."""
     from ..utils.hoistconst import devconst
     name = jnp.dtype(rdt).name
     return devconst(grid, f"greens:{nzh}:{name}",
@@ -404,20 +403,16 @@ def _stencil(grid: PPPMGrid, x):
     return idx, w
 
 
-# mesh-size bound below which the one-shot separable MXU formulation is used;
-# above it the TILED separable path runs (xy mesh tiles, per-tile MXU
-# matmuls, static overlap-add — no HBM scatter anywhere)
+# mesh-size bound below which the one-shot separable matmul formulation is
+# used; above it the TILED separable path runs (xy mesh tiles, per-tile
+# matmuls, static overlap-add — no scatter anywhere)
 DENSE_XY_LIMIT = 8192
 
 
 def _pick_tile(n: int, lo: int = 8, hi: int = 40, target: int = 16) -> int:
     """Best divisor of n in [lo, hi] (mesh sizes factor into 2/3/5, so one
-    always exists for n >= 64); falls back to n itself.  Lane-aligned
-    (multiple-of-8) divisors always win, then closeness to target, then
-    the larger tile: the fused Mosaic mesh kernel can only lower output tiles
-    whose second-to-last dim is 8-aligned (pppm_spread.py
-    spread_mesh_pallas_supported), and a near-target unaligned pick (e.g.
-    15 on a 120 axis when 24 exists) silently costs the whole kernel."""
+    always exists for n >= 64); falls back to n itself.  Multiple-of-8
+    divisors win, then closeness to target, then the larger tile."""
     best = None
 
     def score(t):
@@ -431,9 +426,7 @@ def _pick_tile(n: int, lo: int = 8, hi: int = 40, target: int = 16) -> int:
 
 # tile-size targets (mesh nodes per tile edge).  Tension: small z-tiles cut
 # the arithmetic waste of the dense-z contraction (each atom touches only
-# `order` z planes) but shrink the per-tile matmuls below MXU efficiency —
-# measured on a v5e at 100k atoms/(144,144,750): tlz=15 was 4x SLOWER than
-# dense-z despite 20x fewer flops.
+# `order` z planes) but shrink the per-tile matmuls below efficient sizes.
 TILE_TARGET_XY = 16
 TILE_TARGET_Z = 32
 
@@ -529,8 +522,7 @@ def _tile_geometry(grid: PPPMGrid, natoms: int) -> TileGeom:
     if grid.tile_cap is not None:
         # occupancy-measured override (with_tile_cap): the density formula's
         # 2.5x inhomogeneity safety over-sizes real systems ~2.7x, and cap
-        # multiplies every tile matmul's flops (100k step: gather3 37.5 ->
-        # 21.2 ms from this alone)
+        # multiplies every tile matmul's flops
         cap = int(grid.tile_cap)
     cap = min(cap, natoms + 1)
     return TileGeom(p, hw, tlx, tly, tlz, ntx, nty, ntz, t_tiles, cap,
@@ -564,16 +556,13 @@ class TileAssign(NamedTuple):
     payload in TileSlots is cheap to refresh each step; the packed-key sort
     is not).  Stays EXACT while every atom remains within TileGeom.dm mesh
     cells per axis of its binning position: drifted atoms land in the patch
-    margin.  The engine rebuilds it either on the Verlet skin trigger
-    (which bounds drift by skin/2; build_engine gates that coupling on
-    skin/2 <= dm * min cell size) or, when no Verlet list exists (the
-    tile pair path), on the tile_drift_exceeded check against ``x_ref``;
-    drift beyond the margin NaN-poisons via the overflow flag (fail
-    loud)."""
+    margin.  The engine rebuilds it on the Verlet skin trigger (which
+    bounds drift by skin/2; build_engine gates that coupling on
+    skin/2 <= dm * min cell size); drift beyond the margin NaN-poisons via
+    the overflow flag (fail loud)."""
     slot: jnp.ndarray      # (N,) int32 slot index = tile * cap + rank
     table: jnp.ndarray     # (T, cap) int32 atom ids (n = empty slot)
     overflow: jnp.ndarray  # () bool — capacity overflow at build time
-    x_ref: jnp.ndarray     # (N, 3) positions the assignment was built at
 
 
 def _tile_ids(grid: PPPMGrid, geom: TileGeom, x):
@@ -628,9 +617,8 @@ def with_tile_cap(grid: PPPMGrid, x0, *, headroom=1.25) -> PPPMGrid:
 
 def tile_assign(grid: PPPMGrid, x) -> TileAssign:
     """Bin atoms by 3-D mesh tile: ONE packed-key int32 sort (atom index in
-    the low bits — the fast TPU selection pattern), rank-in-segment by
-    cummax, two scatters.  ~19 ms at 100k atoms on a v5e — amortize it by
-    refreshing only the payload per step (refresh_tile_slots) and
+    the low bits), rank-in-segment by cummax, two scatters.  Amortize it
+    by refreshing only the payload per step (refresh_tile_slots) and
     rebuilding the assignment on reneighbor events."""
     n = x.shape[0]
     geom = _tile_geometry(grid, n)
@@ -638,8 +626,8 @@ def tile_assign(grid: PPPMGrid, x) -> TileAssign:
     tid, zoob = _tile_ids(grid, geom, x)
     shift = max(1, int(n - 1).bit_length()) if n > 1 else 1
     if t_tiles << shift < 2 ** 31:
-        # single int32 sort with the atom index packed into the key bits —
-        # the fast TPU selection pattern (vs argsort's two-operand sort)
+        # single int32 sort with the atom index packed into the key bits
+        # (vs argsort's two-operand sort)
         key = jax.lax.sort((tid.astype(jnp.int32) << shift)
                            | jnp.arange(n, dtype=jnp.int32))
         ts = key >> shift
@@ -658,21 +646,7 @@ def tile_assign(grid: PPPMGrid, x) -> TileAssign:
     table = jnp.full((t_tiles * cap,), n, jnp.int32).at[slot_sorted].set(
         order.astype(jnp.int32))
     slot = jnp.zeros((n,), jnp.int32).at[order].set(slot_sorted)
-    return TileAssign(slot, table.reshape(t_tiles, cap), overflow, x)
-
-
-def tile_drift_exceeded(grid: PPPMGrid, asg: TileAssign, x) -> jnp.ndarray:
-    """True when any atom drifted more than 90% of the TileGeom.dm-cell
-    patch margin (per axis) since ``asg`` was built — the rebuild trigger
-    for the persistent assignment when no Verlet skin bound exists (the
-    tile pair path has no neighbor list).  The 10% guard absorbs one step's
-    motion between the check and the rebuild; actual margin violation
-    still NaN-poisons via the binning overflow flag (fail loud)."""
-    geom = _tile_geometry(grid, x.shape[0])
-    d = jnp.abs(x - asg.x_ref)
-    cells = jnp.asarray([grid.box[0] / grid.nx, grid.box[1] / grid.ny,
-                         grid.zprd_grid / grid.nz], x.dtype)
-    return jnp.any(d > 0.9 * geom.dm * cells[None, :])
+    return TileAssign(slot, table.reshape(t_tiles, cap), overflow)
 
 
 def refresh_tile_slots(grid: PPPMGrid, asg: TileAssign, x, q) -> TileSlots:
@@ -721,18 +695,15 @@ def refresh_tile_slots(grid: PPPMGrid, asg: TileAssign, x, q) -> TileSlots:
     drifted = oob(lx, tlx) | oob(ly, tly) | oob(lz, tlz)
     overflow = asg.overflow | jnp.any(drifted)
     # ONE packed scatter for all per-atom data (lx/ly/lz are small ints —
-    # exactly representable in f32); seven separate scatters cost ~25 ms at
-    # 100k atoms, one costs ~4 ms.  Empty slots are never written: q=0 and
-    # atom id n, so they contribute nothing.
+    # exactly representable in f32) instead of seven.  Empty slots are
+    # never written: q=0 and atom id n, so they contribute nothing.
     packed = jnp.stack([
         q.astype(dtype),
         lx.astype(dtype), ly.astype(dtype), lz.astype(dtype),
         dxx.astype(dtype), dxy.astype(dtype), dxz.astype(dtype)], axis=1)
     # slot tables via a GATHER through the assignment's slot->atom table
     # (empty slots read the zero pad row) instead of an atom->slot
-    # scatter: the TPU scatter lowering measured ~15 ns/row at 100k where
-    # the row gather sits at the ~2.2 ns/descriptor floor (1.98 -> ~0.7
-    # ms/step); numerically identical — same rows land in the same slots
+    # scatter; numerically identical — same rows land in the same slots
     packed = jnp.concatenate([packed, jnp.zeros((1, 7), dtype)], axis=0)
     ps = packed[asg.table.reshape(-1)].reshape(t_tiles, cap, 7)
     qs = ps[:, :, 0]
@@ -807,8 +778,7 @@ def _overlap_add(patches, geom: TileGeom, nz: int):
     """(T, ex*ey, ez) per-tile patches -> (nx, ny, nz) overlap-add, one
     tiled axis at a time: each axis costs one core-sized concatenate plus
     hw-thin border moves (~2 mesh streams), vs the 27 mesh-sized pad+roll
-    terms of the naive 3-D formulation (measured 13.8 ms -> ~4 ms at
-    (144,144,750)).  x/y are periodic; in span mode the z bin axis is
+    terms of the naive 3-D formulation.  x/y are periodic; in span mode the z bin axis is
     NON-periodic and the extended z ring (bin 0 starts at unwrapped node
     -tlz) maps into the periodic [0, nz) axis with two static slices."""
     p, hw, tlx, tly, tlz, ntx, nty, ntz, t_tiles, cap, z_span, dm = geom
@@ -836,31 +806,14 @@ def _overlap_add(patches, geom: TileGeom, nz: int):
 
 
 def _tile_patches(grid: PPPMGrid, slots: TileSlots, geom: TileGeom,
-                  dtype, use_pallas=None, interpret=False):
+                  dtype):
     """(T, ex*ey, ez) charge patches from slotted atom data — the shared
-    patch-build of spread_tiled and _spread_rhok_tiled.
-
-    ``use_pallas`` (auto: float32 on TPU): run the weight build + patch
-    matmul per tile in one VMEM-resident Mosaic kernel
-    (ops/pallas/pppm_spread.py); the XLA scan round-trips HBM between the
-    one-hot weight builds and the matmul."""
+    patch-build of spread_tiled and _spread_rhok_tiled."""
     p, hw, tlx, tly, tlz, ntx, nty, ntz, t_tiles, cap, z_span, dm = geom
     bw = hw + dm
     ex, ey, ez = tlx + 2 * bw, tly + 2 * bw, tlz + 2 * bw
     qs, lxs, lys, lzs, dxs = (slots.qs, slots.lxs, slots.lys, slots.lzs,
                               slots.dxs)
-    if use_pallas is None:
-        use_pallas = (dtype == jnp.float32
-                      and jax.default_backend() == "tpu")
-    if use_pallas:
-        from .pallas.pppm_spread import spread_tiles_pallas
-        slf = jnp.stack([lxs.astype(dtype), lys.astype(dtype),
-                         lzs.astype(dtype), dxs[..., 0], dxs[..., 1],
-                         dxs[..., 2], qs.astype(dtype)], axis=1)
-        sl = jnp.concatenate(
-            [slf, jnp.zeros((t_tiles, 1, cap), dtype)], axis=1)
-        return spread_tiles_pallas(sl, grid.coeffs, ex=ex, ey=ey, ez=ez,
-                                   cap=cap, interpret=interpret)
     cf = jnp.asarray(grid.coeffs, dtype)
 
     def one(ql, lxl, lyl, lzl, dxl):
@@ -877,12 +830,11 @@ def _tile_patches(grid: PPPMGrid, slots: TileSlots, geom: TileGeom,
     return patches.reshape(t_tiles, ex * ey, ez)
 
 
-def spread_tiled(grid: PPPMGrid, x, q=None, slots: TileSlots = None,
-                 use_pallas=None, interpret=False):
+def spread_tiled(grid: PPPMGrid, x, q=None, slots: TileSlots = None):
     """Scatter-free spread for large meshes: bin atoms into 3-D mesh tiles
-    (pre-sorted slot arrays, one scatter each), per-tile MXU matmul
+    (pre-sorted slot arrays, one scatter each), per-tile matmul
     (ex*ey, cap) x (cap, ez) builds the local patch, patches overlap-add
-    axis-by-axis.  O(T * ex*ey * cap * ez) MXU flops — the z tiling keeps
+    axis-by-axis.  O(T * ex*ey * cap * ez) matmul flops — the z tiling keeps
     ez ~ O(order), ~20x fewer flops than dense-z xy columns — and no
     per-pair HBM scatter.  Tile-capacity overflow poisons the mesh with NaN
     (fail loud, like ops/cells.py).
@@ -894,8 +846,7 @@ def spread_tiled(grid: PPPMGrid, x, q=None, slots: TileSlots = None,
         slots = tile_slots(grid, x, q)
     overflow = slots.overflow
     geom = _tile_geometry(grid, x.shape[0])
-    patches = _tile_patches(grid, slots, geom, dtype,
-                            use_pallas=use_pallas, interpret=interpret)
+    patches = _tile_patches(grid, slots, geom, dtype)
     rho = _overlap_add(patches, geom, grid.nz)
     return jnp.where(overflow, jnp.nan, rho)
 
@@ -927,12 +878,9 @@ def _zbin_dft(grid: PPPMGrid, geom: TileGeom):
     return _ZBIN_DFT_CACHE[key]
 
 
-def spread_rhok(grid: PPPMGrid, x, q=None, slots: TileSlots = None,
-                use_pallas=None):
+def spread_rhok(grid: PPPMGrid, x, q=None, slots: TileSlots = None):
     """Half-spectrum density rhok = rfft3(spread(...)) with the z
-    overlap-add folded into a shifted z-DFT matmul (and, on TPU f32, the
-    patch build + xy overlap-add fused into one Mosaic mesh kernel —
-    ops/pallas/pppm_spread.py spread_mesh_pallas).
+    overlap-add folded into a shifted z-DFT matmul.
 
     The per-tile patches are xy-merged only; their z-binned rows (ntz*ez,
     the OCCUPIED z extent + stencil borders) contract directly with the
@@ -942,22 +890,10 @@ def spread_rhok(grid: PPPMGrid, x, q=None, slots: TileSlots = None,
     rfft3(spread(...)) on the dense path and for float64."""
     if x.dtype != jnp.float32 or _use_dense(grid, x.shape[0]):
         return rfft3(grid, spread(grid, x, q, slots=slots))
-    return _spread_rhok_tiled(grid, x, q, slots, use_pallas=use_pallas)
+    return _spread_rhok_tiled(grid, x, q, slots)
 
 
-def _pack_slot_rows(slots: TileSlots, dtype, t_tiles: int, cap: int):
-    """(T, 8, cap) slot rows [lx, ly, lz, dxx, dxy, dxz, q, 0] — the shared
-    operand layout of the Mosaic spread/gather kernels (one DMA per tile)."""
-    slf = jnp.stack([slots.lxs.astype(dtype), slots.lys.astype(dtype),
-                     slots.lzs.astype(dtype), slots.dxs[..., 0],
-                     slots.dxs[..., 1], slots.dxs[..., 2],
-                     slots.qs.astype(dtype)], axis=1)
-    return jnp.concatenate(
-        [slf, jnp.zeros((t_tiles, 1, cap), dtype)], axis=1)
-
-
-def _spread_rhok_tiled(grid: PPPMGrid, x, q=None, slots: TileSlots = None,
-                       use_pallas=None, interpret=False):
+def _spread_rhok_tiled(grid: PPPMGrid, x, q=None, slots: TileSlots = None):
     dtype = x.dtype
     if slots is None:
         slots = tile_slots(grid, x, q)
@@ -967,34 +903,12 @@ def _spread_rhok_tiled(grid: PPPMGrid, x, q=None, slots: TileSlots = None,
     bw = hw + dm
     ex, ey, ez = tlx + 2 * bw, tly + 2 * bw, tlz + 2 * bw
     hi = jax.lax.Precision.HIGHEST
-    from .pallas.pppm_spread import spread_mesh_pallas_supported
-    lowerable = interpret or spread_mesh_pallas_supported(tly=tly, nty=nty)
-    if use_pallas is None:
-        use_pallas = (dtype == jnp.float32
-                      and jax.default_backend() == "tpu")
-    # Mosaic refuses non-lane-aligned output tiles (see the predicate) —
-    # fall back to the patch-build path rather than fail, even when the
-    # caller forced use_pallas (the kernel simply cannot lower there)
-    use_pallas = use_pallas and lowerable
-    if use_pallas:
-        # one fused kernel: slot rows -> z-binned mesh (no per-tile patch
-        # materialization, no XLA overlap-add merges, no 6-D transpose)
-        from .pallas.pppm_spread import spread_mesh_pallas
-        sl = _pack_slot_rows(slots, dtype, t_tiles, cap)
-        mz = spread_mesh_pallas(
-            sl.reshape(ntx, nty, ntz, 8, cap), grid.coeffs, tlx=tlx,
-            tly=tly, ez=ez, bw=bw, ntx=ntx, nty=nty, ntz=ntz, cap=cap,
-            interpret=interpret)
-        m = mz.transpose(1, 2, 0, 3).reshape(ntx * tlx, nty * tly,
-                                             ntz * ez)
-    else:
-        patches = _tile_patches(grid, slots, geom, dtype,
-                                use_pallas=False)
-        pt = patches.reshape(ntx, nty, ntz, ex, ey, ez)
-        pt = _merge_axis(pt, 1, 4, tly, bw, periodic=True)
-        pt = _merge_axis(pt, 0, 3, tlx, bw, periodic=True)
-        m = pt.transpose(0, 3, 1, 4, 2, 5).reshape(
-            ntx * tlx, nty * tly, ntz * ez)
+    patches = _tile_patches(grid, slots, geom, dtype)
+    pt = patches.reshape(ntx, nty, ntz, ex, ey, ez)
+    pt = _merge_axis(pt, 1, 4, tly, bw, periodic=True)
+    pt = _merge_axis(pt, 0, 3, tlx, bw, periodic=True)
+    m = pt.transpose(0, 3, 1, 4, 2, 5).reshape(
+        ntx * tlx, nty * tly, ntz * ez)
     C, S = _zbin_dft(grid, geom)
     from ..utils.hoistconst import devconst
     dn = jnp.dtype(dtype).name
@@ -1067,9 +981,8 @@ def gather_tiled(grid: PPPMGrid, bricks, x, slots: TileSlots = None):
     _, vals = jax.lax.scan(
         lambda _, args: (None, xrow(args[0], *args[1:])), None,
         (jnp.arange(ntx, dtype=jnp.int32),) + xs)
-    # inverse-slot GATHER instead of a (T*cap, nb) scatter: each atom owns
-    # exactly one slot, and an N-row gather costs ~4x less than the
-    # scatter-add on TPU (tools/exp_gather3b.py: 4.4 ms -> ~0.6 ms at 100k)
+    # inverse-slot GATHER instead of a (T*cap, nb) scatter-add: each atom
+    # owns exactly one slot
     out = vals.reshape(t_tiles * cap, nb)[slots.slot]
     return [jnp.where(overflow, jnp.nan, out[:, bi]) for bi in range(nb)]
 
@@ -1228,30 +1141,11 @@ def pppm_energy_u_zbin(grid: PPPMGrid, rhok, natoms: int):
     return e, u.reshape(grid.nx, grid.ny, ntz, u.shape[-1] // ntz)
 
 
-def _zbin_patches(up, geom):
-    """(T, ez, ex*ey) im2col patch blocks from the xy-wrap-padded z-binned
-    mesh ``up`` (nx+2bw, ny+2bw, ntz, ez): static overlapping x/y window
-    slices only — no gather HLO (tools/exp_patch_gather.py)."""
-    p, hw, tlx, tly, tlz, ntx, nty, ntz, t_tiles, cap, z_span, dm = geom
-    bw = hw + dm
-    ex, ey, ez = tlx + 2 * bw, tly + 2 * bw, tlz + 2 * bw
-    xw = jnp.stack([up[i * tlx:i * tlx + ex] for i in range(ntx)])
-    yw = jnp.stack([xw[:, :, k * tly:k * tly + ey] for k in range(nty)],
-                   axis=1)                  # (ntx, nty, ex, ey, ntz, ez)
-    return yw.transpose(0, 1, 4, 5, 2, 3).reshape(t_tiles, ez, ex * ey)
-
-
-def gather3_ad_zbin(grid: PPPMGrid, uz, x, slots: TileSlots = None,
-                    use_pallas: bool = None, interpret: bool = False):
+def gather3_ad_zbin(grid: PPPMGrid, uz, x, slots: TileSlots = None):
     """gather3_ad_tiled reading the z-binned potential rows produced by
     pppm_energy_u_zbin: per tile the (ex, ey, ez) patch is an xy
     dynamic_slice of the wrap-padded (nx+2bw, ny+2bw) mesh at the tile's
-    own z-bin — no full-mesh _pad_brick, no dense z rows.
-
-    ``use_pallas`` (auto: float32 on TPU): fuse the per-tile weight build +
-    contraction in one VMEM-resident Mosaic kernel
-    (ops/pallas/pppm_gather.py) — the XLA tile scan is fusion-overhead
-    bound at ~9.7 ms/step at the 100k geometry."""
+    own z-bin — no full-mesh _pad_brick, no dense z rows."""
     n = x.shape[0]
     dtype = x.dtype
     if slots is None:
@@ -1262,22 +1156,8 @@ def gather3_ad_zbin(grid: PPPMGrid, uz, x, slots: TileSlots = None,
     p, hw, tlx, tly, tlz, ntx, nty, ntz, t_tiles, cap, z_span, dm = geom
     bw = hw + dm
     ex, ey, ez = tlx + 2 * bw, tly + 2 * bw, tlz + 2 * bw
-    if use_pallas is None:
-        use_pallas = (dtype == jnp.float32
-                      and jax.default_backend() == "tpu")
     up = jnp.pad(uz.astype(dtype), ((bw, bw), (bw, bw), (0, 0), (0, 0)),
                  mode="wrap")
-    if use_pallas:
-        from .pallas.pppm_gather import gather3_tiles_pallas
-        patches = _zbin_patches(up, geom)
-        sl = _pack_slot_rows(slots, dtype, t_tiles, cap)
-        out = gather3_tiles_pallas(patches, sl, grid.coeffs,
-                                   ex=ex, ey=ey, ez=ez, cap=cap,
-                                   interpret=interpret)
-        vals = out[:, :3, :].transpose(0, 2, 1)
-        e = vals.reshape(t_tiles * cap, 3)[slots.slot] * jnp.asarray(
-            _delinv(grid), dtype)[None, :]
-        return jnp.where(overflow, jnp.nan, e)
     cf = jnp.asarray(grid.coeffs, dtype)
 
     def one(patch, lxl, lyl, lzl, dxl):
@@ -1305,9 +1185,7 @@ def gather3_ad_zbin(grid: PPPMGrid, uz, x, slots: TileSlots = None,
     # dense per-row patch extraction: the scan index IS the x-tile row, so
     # one dynamic_slice covers the whole row and the per-tile patches fall
     # out of nty STATIC overlapping y-window slices (im2col) — no gather
-    # HLO at all.  The vmapped per-tile dynamic_slice this replaces lowered
-    # to a descriptor-rate gather: 13.2 -> 9.7 ms at the 100k geometry
-    # (tools/exp_patch_gather.py, bit-exact).
+    # HLO at all (a vmapped per-tile dynamic_slice lowers to a gather).
     def xrow(txi, lxl, lyl, lzl, dxl):
         zero = jnp.zeros((), txi.dtype)
         blk = jax.lax.dynamic_slice(
@@ -1378,7 +1256,7 @@ def pppm_energy_u(grid: PPPMGrid, rho):
 # those planes is 2 Re[IFFT2(phik @ c exp(+2 pi i kz z/nz)/nz)] (Hermitian
 # z-half-spectrum reconstruction).  Combined with caching the electrolyte
 # rhok, the per-step PPPM cost drops to ONE full forward FFT (electrolyte
-# spread) + ONE full inverse FFT (force potential mesh) — the TPU-FFT-level
+# spread) + ONE full inverse FFT (force potential mesh) — the FFT-level
 # expression of the reference's electrode/electrolyte brick split
 # (pppm_conp.cpp:172-228, 385-426).
 # ---------------------------------------------------------------------------
@@ -1559,7 +1437,7 @@ def _axis_weight_matrices(grid: PPPMGrid, x):
     """Dense per-axis B-spline weight matrices Wx (N,nx), Wy (N,ny), Wz (N,nz).
 
     Each row has `order` nonzeros; built with tiny (N*order) scatters.  The
-    spread/gather then become MXU matmuls (the same dense-separable trick as
+    spread/gather then become matmuls (the same dense-separable trick as
     the factorized Ewald): rho(flat_xy, z) = (Wx*Wy)^T diag(q) Wz."""
     (ix, iy, iz), (wx, wy, wz) = _stencil(grid, x)
     n = x.shape[0]
@@ -1573,9 +1451,8 @@ def _axis_weight_matrices(grid: PPPMGrid, x):
 def _use_dense(grid: PPPMGrid, n: int) -> bool:
     """Dense per-atom weight matrices ((N, nx*ny) xy outer + (N, nz) z) are
     the right path when the xy mesh is small OR N is small: the tiled
-    path's overlap-add streams ~27 mesh-sized arrays regardless of N
-    (~14 ms at (144,144,750) even for 1k atoms — measured), while the
-    dense matmul for the per-step electrode re-spread is sub-ms on MXU."""
+    path's overlap-add streams ~27 mesh-sized arrays regardless of N,
+    while the dense matmul for the per-step electrode re-spread is small."""
     return (grid.nx * grid.ny <= DENSE_XY_LIMIT
             or n * (grid.nx * grid.ny + grid.nz) <= 32 * 1024 * 1024)
 
@@ -1659,11 +1536,8 @@ def _xydft_mats(n: int):
 def _xy_fft2(re, im):
     """fftn(re + 1j*im, axes=(0, 1)) as exact-phase DFT matmuls.
 
-    XLA's TPU FFT underuses the MXU: at the (144, 144, 365) production
-    spectrum the complex fft2 measures 2.23 ms where these four f32
-    HIGHEST matmuls per axis measure 1.47 ms at 4e-7 relative error
-    (tools/exp_spread2.py).  Inputs are the real/imag planes; returns
-    complex."""
+    Four f32 HIGHEST matmuls per axis (4e-7 relative error against
+    float64).  Inputs are the real/imag planes; returns complex."""
     nx, ny = re.shape[0], re.shape[1]
     CX, SX = _xydft_mats(nx)
     CY, SY = _xydft_mats(ny)
@@ -1711,12 +1585,10 @@ def _xy_ifft2(vk):
 def rfft3(grid: PPPMGrid, rho):
     """Half-spectrum 3-D transform of a real mesh (== jnp.fft.rfftn(rho)).
 
-    float32 (the TPU hot path): the z axis — the long one for slab cells —
-    goes through an exact-phase DFT matmul on the MXU and xy through
-    exact-phase DFT matmuls too (_xy_fft2).  At the 100k production grid
-    this is >2x faster than XLA's rfftn AND more accurate vs a float64
-    reference (tools/exp_fft.py, tools/exp_spread2.py).  float64 keeps
-    jnp.fft.rfftn (the CPU/test path; TPU has no complex128 FFT anyway)."""
+    float32 (the production path): the z axis — the long one for slab
+    cells — goes through an exact-phase DFT matmul and xy through
+    exact-phase DFT matmuls too (_xy_fft2); more accurate vs a float64
+    reference than a float32 FFT.  float64 keeps jnp.fft.rfftn."""
     if rho.dtype != jnp.float32:
         return jnp.fft.rfftn(rho)
     C, S, _, _ = _zdft_mats(grid.nz)

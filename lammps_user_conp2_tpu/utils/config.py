@@ -125,17 +125,11 @@ class MDConfig:
     thermostats: tuple = ()         # tuple[ThermostatConfig]
     shake: Optional[ShakeConfig] = None
     zmirror: Optional[ZMirrorConfig] = None
-    # use the Pallas pair kernel instead of the XLA dense path; None = auto
-    # (on for TPU backends — ~11%% faster steps — off elsewhere)
-    use_pallas_pair: Optional[bool] = None
-    # real-space pair path: "auto" (block-compacted Verlet neighbor list
-    # when N is large and the box is much bigger than the cutoff, else
-    # dense), "dense", "cell" (padded cell-block sweep, also the sharded
-    # engine's path), "nlist" (per-atom (N, K) rows), "block" (i-blocks of
-    # 8 cell-sorted atoms share one j-union row — ~3.5x fewer gather
-    # descriptors, the TPU sweep's whole cost), or "tile" (the Pallas
-    # tile-pair kernel with k-d brick ordering — no Verlet list; TPU f32
-    # only, falls back elsewhere)
+    # real-space pair path: "auto" (per-atom Verlet neighbor list when N
+    # is large and the box is much bigger than the cutoff, else dense),
+    # "dense", "cell" (padded cell-block sweep, also the sharded engine's
+    # path), "nlist" (per-atom (N, K) rows) or "block" (i-blocks of 8
+    # cell-sorted atoms share one j-union row — ~3.5x fewer gathered rows)
     pair_path: str = "auto"
     # Verlet-list skin (Angstrom): list radius = cutoff + skin, rebuilt when
     # any atom moves more than skin/2 (LAMMPS neigh_modify check yes)
@@ -156,3 +150,11 @@ class MDConfig:
     # dtype for the force/integration path; solve path is configured separately
     dtype: str = "float64"
     solve_dtype: str = "float64"
+
+    def __post_init__(self):
+        if self.pair_path not in PAIR_PATHS:
+            raise ValueError(f"pair_path {self.pair_path!r} is not one of "
+                             f"{PAIR_PATHS}")
+
+
+PAIR_PATHS = ("auto", "dense", "cell", "nlist", "block")

@@ -5,7 +5,7 @@ Each function mirrors one env-var-parameterized LAMMPS input from
 (System, MDConfig, ConpConfig) ready for build_engine/setup_conp.
 
 Trial numbering follows the reference inputs exactly, e.g. dilute
-(tests/dilute/input:4-10): 0=conp slab, 1=+etypes (a no-op for the dense TPU
+(tests/dilute/input:4-10): 0=conp slab, 1=+etypes (a no-op for the dense
 pair path), 2=conp ffield [+efield], 3=noslab zneutr sym, 4=anti, 5=ffield
 rerun.
 """
@@ -129,6 +129,78 @@ def synthetic(n_elyte: int = 64, nele_side: int = 4, *, lz: float = 30.0,
     cfg = ConpConfig(mode=Mode.CONP, nevery=1, eta=1.979, target=1.0,
                      ff=FFMode.NORMAL)
     return system, md, cfg
+
+
+def capacitor_il(**size):
+    """The synthetic capacitor at il-deck size (~3.8k atoms) and the ion
+    density of capacitor_100k: dense pair sweep, factorised Ewald, INV
+    solve.  ``size`` overrides synthetic()'s size arguments."""
+    kw = dict(n_elyte=3456, nele_side=12, lz=80.0, lxy=40.0)
+    kw.update(size)
+    return synthetic(**kw)
+
+
+def capacitor_100k(**size):
+    """The synthetic capacitor at production size: 98,304 ions plus 2x23^2
+    electrode atoms, PPPM mesh k-space, INV solve, Verlet neighbor list.
+    ``size`` overrides synthetic()'s size arguments."""
+    import dataclasses as _dc
+
+    kw = dict(n_elyte=98304, nele_side=23, lz=240.0, lxy=120.0)
+    kw.update(size)
+    system, md, cfg = synthetic(**kw)
+    md = _dc.replace(md, kspace_style=KSpaceStyle.PPPM, pair_path="nlist")
+    cfg = _dc.replace(cfg, kspace=KSpaceStyle.PPPM)
+    return system, md, cfg
+
+
+def rotors(m: int = 320, *, seed: int = 0, spacing: float = 7.0):
+    """Rigid bent 3-site molecules on a jittered lattice — the constraint
+    shape of the il decks' BMI cations (two bonds plus one angle, one
+    3-atom SHAKE cluster per molecule) with no deck file.  The angle is
+    bent: for collinear sites the three distance constraints are
+    degenerate and SHAKE cannot converge.  Molecules cross the periodic
+    x/y faces.  Returns (System, ShakeConfig)."""
+    from .utils.data_io import LammpsData
+
+    rng = np.random.default_rng(seed)
+    side = int(np.ceil(np.sqrt(m / 4.0)))
+    nz = int(np.ceil(m / (side * side)))
+    lxy, lz = side * spacing, nz * spacing
+    r1, r2, theta = 2.2, 2.6, 110.0         # bond lengths, angle (degrees)
+    cell = np.stack(np.meshgrid(np.arange(side), np.arange(side),
+                                np.arange(nz), indexing="ij"),
+                    axis=-1).reshape(-1, 3)[:m]
+    center = (cell + 0.5) * spacing + rng.uniform(-1.0, 1.0, (m, 3))
+    rot = np.linalg.qr(rng.normal(size=(m, 3, 3)))[0]   # random frames
+    th = np.deg2rad(theta)
+    local = np.array([[-r1, 0.0, 0.0], [0.0, 0.0, 0.0],
+                      [-r2 * np.cos(th), r2 * np.sin(th), 0.0]])
+    x = center[:, None, :] + np.einsum("mij,aj->mai", rot, local)
+    x[..., :2] %= lxy                       # wrap: some molecules straddle
+    x = x.reshape(-1, 3)
+    nat = 3 * m
+    base = 3 * np.arange(m)
+    bonds = np.concatenate([
+        np.stack([np.full(m, 1), base, base + 1], axis=1),
+        np.stack([np.full(m, 2), base + 1, base + 2], axis=1)])
+    angles = np.stack([np.full(m, 1), base, base + 1, base + 2], axis=1)
+    data = LammpsData(
+        natoms=nat, natomtypes=3,
+        box_lo=np.zeros(3), box_hi=np.array([lxy, lxy, lz]),
+        tag=np.arange(1, nat + 1), mol=np.repeat(np.arange(1, m + 1), 3),
+        type=np.tile([1, 2, 3], m), q=np.zeros(nat), x=x,
+        v=np.zeros((nat, 3)),
+        mass_by_type=np.array([0.0, 15.0, 42.0, 57.0]),
+        pair_coeffs=np.array([[0, 0], [0.1, 3.4], [0.1, 3.4], [0.1, 3.4]]),
+        pair_coeffs_ij=None,
+        bond_coeffs=np.array([[0.0, 0.0], [300.0, r1], [300.0, r2]]),
+        angle_coeffs=np.array([[0.0, 0.0], [50.0, theta]]),
+        bonds=bonds.astype(np.int64), angles=angles.astype(np.int64),
+    )
+    system = build_system(data, units="real", periodic=(True, True, False),
+                          mix="arithmetic", groups={"bmi": np.ones(nat, bool)})
+    return system, ShakeConfig(group="bmi", btypes=(1, 2), atypes=(1,))
 
 
 def dilute(n: int = 0, *, data_path: Optional[str] = None):

@@ -1,7 +1,7 @@
-// Native host-runtime components for the TPU CONP framework.
+// Native host-runtime components for the CONP framework.
 //
 // The reference is a C++ LAMMPS plugin; its host runtime (IO, parsing,
-// buffers) is native.  Here the TPU compute path is JAX/XLA, and the native
+// buffers) is native.  Here the device compute path is JAX/XLA, and the native
 // layer owns the host-side hot paths:
 //   * LAMMPS data-file parser (atom_style full) — tokenizes multi-MB data
 //     files ~50x faster than the Python fallback,

@@ -13,6 +13,9 @@ from lammps_user_conp2_tpu.models.conp import setup_conp
 from lammps_user_conp2_tpu.models.md import build_engine
 from lammps_user_conp2_tpu.utils import dump
 from lammps_user_conp2_tpu.utils.checkpoint import load_checkpoint, save_checkpoint
+import pytest
+
+pytestmark = pytest.mark.usefixtures("ref_decks")
 
 
 def test_checkpoint_roundtrip_bit_exact(tmp_path):

@@ -2,6 +2,9 @@
 
 import subprocess
 import sys
+import pytest
+
+pytestmark = pytest.mark.usefixtures("ref_decks")
 
 
 def run_cli(args, cwd=None):

@@ -17,6 +17,8 @@ from lammps_user_conp2_tpu.models.conp import setup_conp
 from lammps_user_conp2_tpu.models.electrodes import assemble_amatrix
 from lammps_user_conp2_tpu.models.md import build_engine
 
+pytestmark = pytest.mark.usefixtures("ref_decks")
+
 REF_QLEFT_STEP0 = 0.044057154     # tests/dilute/persist.log step 0
 REF_TEMP_STEP20 = 1009.3219       # tests/dilute/persist.log step 20
 REF_TEMPSL_STEP20 = 1820.1579

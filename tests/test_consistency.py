@@ -9,12 +9,14 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from lammps_user_conp2_tpu import workloads
 from lammps_user_conp2_tpu.models.conp import setup_conp
 from lammps_user_conp2_tpu.models.md import build_engine
 
 
+@pytest.mark.usefixtures("ref_decks")
 def test_forces_are_energy_gradient_through_charge_solve():
     system, md, cfg = workloads.dilute(0)
     cfg = dataclasses.replace(cfg, target=0.0)

@@ -43,6 +43,7 @@ def _potential(system, solver, q, **kw):
         **kw)
 
 
+@pytest.mark.usefixtures("ref_decks")
 def test_electrode_potentials_equal_applied_voltage(dilute_solved):
     system, md, cfg, solver, q = dilute_solved
     pot = np.asarray(_potential(system, solver, q))
@@ -57,6 +58,7 @@ def test_electrode_potentials_equal_applied_voltage(dilute_solved):
     assert abs(dv - 1.0) < 1e-3
 
 
+@pytest.mark.usefixtures("ref_decks")
 def test_potential_atom_pppm_matches_ewald(dilute_solved):
     system, md, cfg, solver, q = dilute_solved
     cfgp = dataclasses.replace(cfg, kspace=KSpaceStyle.PPPM)
@@ -67,6 +69,7 @@ def test_potential_atom_pppm_matches_ewald(dilute_solved):
     assert np.abs(p1 - p2).max() < 3e-3
 
 
+@pytest.mark.usefixtures("ref_decks")
 def test_pppm_engine_short_trajectory_matches_ewald():
     system, md, cfg = workloads.dilute(0)
     s_e = setup_conp(system, md, cfg)
@@ -83,6 +86,7 @@ def test_pppm_engine_short_trajectory_matches_ewald():
     np.testing.assert_allclose(np.asarray(st2.q), np.asarray(st1.q), atol=5e-5)
 
 
+@pytest.mark.usefixtures("ref_decks")
 def test_pppm_ad_engine_trajectory_matches_ik():
     """Engine-level wiring of MDConfig.pppm_diff='ad' (the production
     large-mesh force path): a short dilute trajectory under ad
@@ -119,6 +123,7 @@ def test_nghosts_counts_images():
     assert list(c) == [1, 0, 3]
 
 
+@pytest.mark.usefixtures("ref_decks")
 def test_zmirror_pairing_and_transform():
     system, md, cfg = workloads.dilute(3)   # doubled cell
     pos = system.x0[:, 2] > 0
@@ -136,6 +141,7 @@ def test_zmirror_pairing_and_transform():
     np.testing.assert_allclose(x2[dst, 2], system.x0[dst, 2], atol=1e-9)
 
 
+@pytest.mark.usefixtures("ref_decks")
 @pytest.mark.slow
 def test_pppm_slab_z_resolution_converged():
     """Pin the documented z-grid deviation (ops/pppm.py docstring) as safe:
@@ -206,6 +212,7 @@ def test_pppm_tiled_spread_gather_match_dense():
                                atol=1e-14)
 
 
+@pytest.mark.usefixtures("ref_decks")
 def test_capacitance_static_matches_solve_linearity():
     """tools/capacitance.py's static estimator: dQ_left/dV must equal the
     finite difference of two actual charge solves at different potentials

@@ -12,6 +12,8 @@ from lammps_user_conp2_tpu import workloads
 from lammps_user_conp2_tpu.models.conp import setup_conp
 from lammps_user_conp2_tpu.utils.config import EhgoConfig, PairMode
 
+pytestmark = pytest.mark.usefixtures("ref_decks")
+
 
 @pytest.fixture(scope="module")
 def dilute0():

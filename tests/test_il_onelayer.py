@@ -11,6 +11,8 @@ from lammps_user_conp2_tpu import workloads
 from lammps_user_conp2_tpu.models.conp import setup_conp
 from lammps_user_conp2_tpu.models.md import build_engine
 
+pytestmark = pytest.mark.usefixtures("ref_decks")
+
 
 def test_il_onelayer_slab_vs_ffield_step0():
     qs = {}

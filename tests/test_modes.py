@@ -11,6 +11,7 @@ from lammps_user_conp2_tpu import workloads
 from lammps_user_conp2_tpu.models.conp import setup_conp
 
 
+
 def _solve(n):
     system, md, cfg = workloads.dilute(n)
     s = setup_conp(system, md, cfg)
@@ -24,12 +25,14 @@ def slab_charges():
     return float(q[system.ele_left_mask].sum())
 
 
+@pytest.mark.usefixtures("ref_decks")
 def test_ffield_matches_slab(slab_charges):
     system, q, _ = _solve(2)
     qleft = float(q[system.ele_left_mask].sum())
     assert abs(qleft - slab_charges) < 1e-5
 
 
+@pytest.mark.usefixtures("ref_decks")
 def test_doubled_sym_matches_slab(slab_charges):
     system, q, _ = _solve(3)
     pos = system.x0[:, 2] > 0
@@ -40,6 +43,7 @@ def test_doubled_sym_matches_slab(slab_charges):
         assert abs(ql + qr) < 1e-9     # zneutr: each half neutral
 
 
+@pytest.mark.usefixtures("ref_decks")
 def test_doubled_anti_neg_half_matches_slab(slab_charges):
     system, q, _ = _solve(4)
     neg = system.x0[:, 2] < 0        # the unmodified original cell
@@ -49,6 +53,7 @@ def test_doubled_anti_neg_half_matches_slab(slab_charges):
     assert abs(ql + qr) < 1e-9
 
 
+@pytest.mark.usefixtures("ref_decks")
 def test_cg_solver_matches_inverse():
     """The neutrality-projected CG (fix_conp.cpp:864-930) must agree with the
     projected-inverse solve to its own tolerance."""
@@ -73,6 +78,7 @@ def test_cg_solver_matches_inverse():
     assert abs(float(qc[ele].sum())) < 1e-10
 
 
+@pytest.mark.usefixtures("ref_decks")
 def test_cg_warm_start_converges_same_and_faster():
     """cg_solve(x0=near-solution) must return the same answer (to the CG
     tolerance) in strictly fewer iterations than a cold start — the per-step
@@ -114,6 +120,7 @@ def test_cg_warm_start_converges_same_and_faster():
                                atol=2e-5)
 
 
+@pytest.mark.usefixtures("ref_decks")
 def test_matfree_cg_matches_inverse():
     """Matrix-free CG (A.p via factored Ewald, no k-space assembly) must
     agree with the projected inverse — the production-scale solver."""
@@ -134,6 +141,7 @@ def test_matfree_cg_matches_inverse():
     assert abs(float(fi) - float(fm)) < 1e-7
 
 
+@pytest.mark.usefixtures("ref_decks")
 def test_matfree_mobile_electrodes():
     """CG_MATFREE with mobile_electrodes rebuilds the operator from live
     positions: solving at perturbed electrode coordinates must match a full
@@ -179,9 +187,9 @@ def test_matfree_mobile_electrodes():
 def test_inv_matches_matfree_production_config():
     """Engine-level INV == CG_MATFREE on the production configuration
     (PPPM mesh k-space + Verlet nlist pair path) at a mid-size synthetic
-    capacitor — the configuration tools/bench_large.py runs with INV by
-    default now that the host plane-factored A assembly makes the inverse
-    viable at production K counts."""
+    capacitor — the configuration workloads.capacitor_100k runs with INV
+    now that the host plane-factored A assembly makes the inverse viable
+    at production K counts."""
     import dataclasses
     import jax.numpy as jnp
     from lammps_user_conp2_tpu.models.md import build_engine

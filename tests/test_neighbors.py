@@ -1,5 +1,6 @@
 """Verlet neighbor-list pair path: forces match the dense sweep, and the
-engine trajectory with skin-based reneighboring matches the dense engine."""
+engine trajectory with skin-based reneighboring matches the dense engine.
+Path against path, on the synthetic capacitor (no deck file)."""
 
 import dataclasses
 
@@ -18,8 +19,19 @@ from lammps_user_conp2_tpu.ops.pairs import dense_pair_forces, make_pair_tables
 G = 0.7723634128
 
 
+def _capacitor():
+    """The synthetic capacitor with its ion lattice jittered: on the bare
+    lattice some pair distances equal the cutoff exactly, and which side
+    of it they land on is roundoff."""
+    system, md, cfg = workloads.synthetic(n_elyte=512, nele_side=8, lz=60.0,
+                                          lxy=24.0)
+    rng = np.random.default_rng(7)
+    jit = rng.uniform(-0.2, 0.2, system.x0.shape) * (~system.ele_mask)[:, None]
+    return dataclasses.replace(system, x0=system.x0 + jit), md, cfg
+
+
 def test_nlist_forces_match_dense():
-    system, md, cfg = workloads.dilute(0)
+    system, md, cfg = _capacitor()
     u = system.units()
     x = jnp.asarray(system.x0)
     q = jnp.asarray(system.q0) + 0.01
@@ -45,7 +57,7 @@ def test_nlist_forces_match_dense():
 def test_nlist_engine_trajectory_matches_dense():
     """20 steps through the jitted scan incl. the lax.cond reneighbor check:
     positions/charges/temperature agree with the dense engine to roundoff."""
-    system, md, cfg = workloads.dilute(0)
+    system, md, cfg = _capacitor()
     conp = setup_conp(system, md, cfg)
     e1 = build_engine(system, md, conp)
     md2 = dataclasses.replace(md, pair_path="nlist", neighbor_skin=1.0)
@@ -63,9 +75,8 @@ def test_overflow_recovery_grows_capacity():
     Engine.run detects the sticky overflow flag at the host boundary, grows
     the capacity, heals derived state, and completes with correct physics —
     the analogue of LAMMPS neighbor-page reallocation (SURVEY.md 2.3-1)."""
-    system, md, cfg = workloads.synthetic(n_elyte=512, nele_side=8, lz=60.0,
-                                          lxy=24.0)
-    md_ok = dataclasses.replace(md, pair_path="nlist", use_pallas_pair=False)
+    system, md, cfg = _capacitor()
+    md_ok = dataclasses.replace(md, pair_path="nlist")
     md_bad = dataclasses.replace(md_ok, neighbor_kmax=4)
     conp = setup_conp(system, md_ok, cfg)
     eng_ok = build_engine(system, md_ok, conp)
@@ -91,7 +102,7 @@ def test_nlist_rebuild_fires_on_motion():
     """Moving one atom farther than skin/2 flips needs_rebuild."""
     from lammps_user_conp2_tpu.ops.neighbors import needs_rebuild
 
-    system, md, cfg = workloads.dilute(0)
+    system, md, cfg = _capacitor()
     ti = jnp.asarray(system.type)
     tables = make_pair_tables(system.lj_eps, system.lj_sigma, system.type)
     ncfg = make_neighbor_config(system.box, tuple(system.box_lo), md.cutoff,
@@ -110,7 +121,7 @@ def test_block_forces_match_nlist():
     per-atom (N, K) sweep — forces/energies agree to roundoff."""
     from lammps_user_conp2_tpu.ops.neighbors import block_pair_forces
 
-    system, md, cfg = workloads.dilute(0)
+    system, md, cfg = _capacitor()
     u = system.units()
     x = jnp.asarray(system.x0)
     q = jnp.asarray(system.q0) + 0.01
@@ -145,7 +156,7 @@ def test_block_forces_match_nlist():
 def test_block_engine_trajectory_matches_nlist():
     """20 steps through the jitted scan (incl. reneighbor conds) on the
     block path track the nlist engine to roundoff."""
-    system, md, cfg = workloads.dilute(0)
+    system, md, cfg = _capacitor()
     conp = setup_conp(system, md, cfg)
     md1 = dataclasses.replace(md, pair_path="nlist", neighbor_skin=1.0)
     md2 = dataclasses.replace(md, pair_path="block", neighbor_skin=1.0)
@@ -162,9 +173,8 @@ def test_block_engine_trajectory_matches_nlist():
 def test_block_union_overflow_recovers():
     """An undersized union width U NaN-poisons (fail-loud) and Engine.run's
     grow-and-retry heals it, like the K overflow path."""
-    system, md, cfg = workloads.synthetic(n_elyte=512, nele_side=8, lz=60.0,
-                                          lxy=24.0)
-    md_ok = dataclasses.replace(md, pair_path="block", use_pallas_pair=False)
+    system, md, cfg = _capacitor()
+    md_ok = dataclasses.replace(md, pair_path="block")
     conp = setup_conp(system, md_ok, cfg)
     eng_ok = build_engine(system, md_ok, conp)
     eng_bad = build_engine(system, md_ok, conp)
@@ -181,89 +191,3 @@ def test_block_union_overflow_recovers():
     np.testing.assert_allclose(np.asarray(f_bad.x), np.asarray(f_ok.x),
                                atol=1e-10)
     assert abs(float(th_bad["temp"][-1] - th_ok["temp"][-1])) < 1e-8
-
-
-def test_block_pallas_matches_xla():
-    """The Mosaic block-union kernel (interpret mode on CPU) reproduces the
-    XLA block sweep to f32 roundoff.
-
-    Uses the synthetic capacitor (no bonded exclusions): on decks with
-    excluded 1-2 pairs the raw per-block sums reach the LJ-wall magnitude
-    (~1e6) before the exclusion correction cancels them, so reduction-order
-    roundoff between the two sweeps is ~1e-6 of THAT, not of the net
-    force — verified to be pure summation-order noise (both sweeps agree
-    with a float64 reference equally well)."""
-    from lammps_user_conp2_tpu.ops.neighbors import block_pair_forces
-
-    system, md, cfg = workloads.synthetic(n_elyte=900, nele_side=7,
-                                          lz=36.0, lxy=24.0)
-    u = system.units()
-    x = jnp.asarray(system.x0, jnp.float32)
-    q = jnp.asarray(system.q0, jnp.float32) + 0.01
-    ti = jnp.asarray(system.type)
-    tables = make_pair_tables(system.lj_eps, system.lj_sigma, system.type,
-                              jnp.float32)
-    excl = tuple(jnp.asarray(a) for a in exclusion_lists(system))
-    ncfg = make_neighbor_config(system.box, tuple(system.box_lo), md.cutoff,
-                                system.natoms, periodic=system.periodic,
-                                block=8, x0=system.x0)
-    nl = build_neighbor_list(ncfg, x, tables, ti)
-    assert not bool(nl.overflow)
-    f1, ev1, ec1, _ = block_pair_forces(ncfg, nl, x, q, ti, tables, excl,
-                                        g_ewald=G, qqr2e=u.qqr2e,
-                                        use_pallas=False)
-    f2, ev2, ec2, _ = block_pair_forces(ncfg, nl, x, q, ti, tables, excl,
-                                        g_ewald=G, qqr2e=u.qqr2e,
-                                        use_pallas=True, interpret=True)
-    scale = float(jnp.abs(f1).max())
-    np.testing.assert_allclose(np.asarray(f2) / scale,
-                               np.asarray(f1) / scale, atol=5e-6)
-    np.testing.assert_allclose(float(ev2), float(ev1), rtol=2e-5)
-    np.testing.assert_allclose(float(ec2), float(ec1), rtol=2e-5)
-
-
-def test_block_fused_conp_correction_matches_separate():
-    """Fused CONP correction in the block sweep (XLA twin of the Mosaic
-    chain) == unfused sweep + the separate O(Ne*K) row correction."""
-    import dataclasses
-    from lammps_user_conp2_tpu.models.conp import setup_conp
-    from lammps_user_conp2_tpu.ops.neighbors import (
-        block_pair_forces, conp_correction_from_list)
-    from lammps_user_conp2_tpu.utils.config import Solver
-
-    system, md, cfg = workloads.synthetic(n_elyte=512, nele_side=5,
-                                          lz=36.0, lxy=20.0)
-    cfgx = dataclasses.replace(cfg, solver=Solver.INV)
-    conp = setup_conp(system, md, cfgx, solve_dtype=jnp.float32)
-    u = system.units()
-    x = jnp.asarray(system.x0, jnp.float32)
-    q = jnp.asarray(system.q0, jnp.float32) + 0.01
-    ti = jnp.asarray(system.type)
-    tables = make_pair_tables(system.lj_eps, system.lj_sigma, system.type,
-                              jnp.float32)
-    excl = tuple(jnp.asarray(a) for a in exclusion_lists(system))
-    ncfg = make_neighbor_config(system.box, tuple(system.box_lo), md.cutoff,
-                                system.natoms, periodic=system.periodic,
-                                block=8)
-    nl = build_neighbor_list(ncfg, x, tables, ti)
-    assert not bool(nl.overflow)
-    kern = conp.kernels
-    ele_f = jnp.asarray(np.asarray(system.elecheck) != 0, jnp.float32)
-    ely_f = jnp.asarray(conp.elyte_mask, jnp.float32)
-    fuse = (ele_f, ely_f, kern.eta_ij, kern.fo_ij, ti)
-    g = 0.35
-    ff, evf, ecf, ecorr_f, _ = block_pair_forces(
-        ncfg, nl, x, q, ti, tables, excl, g_ewald=g, qqr2e=u.qqr2e,
-        conp_fuse=fuse)
-    f0, ev0, ec0, _ = block_pair_forces(
-        ncfg, nl, x, q, ti, tables, excl, g_ewald=g, qqr2e=u.qqr2e)
-    fc, ecorr_s = conp_correction_from_list(
-        ncfg, nl, x, q, jnp.asarray(conp.ele_idx), conp.elyte_mask, ti,
-        kern.force, kern.potential, cutoff=md.cutoff, qqr2e=u.qqr2e)
-    sc = float(jnp.abs(f0 + fc).max())
-    np.testing.assert_allclose(np.asarray(ff), np.asarray(f0 + fc),
-                               atol=3e-6 * sc)
-    np.testing.assert_allclose(float(ecorr_f), float(ecorr_s),
-                               rtol=3e-5, atol=1e-6)
-    np.testing.assert_allclose(float(evf), float(ev0), rtol=1e-6)
-    np.testing.assert_allclose(float(ecf), float(ec0), rtol=1e-6)

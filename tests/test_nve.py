@@ -17,6 +17,9 @@ import jax.numpy as jnp
 
 from lammps_user_conp2_tpu import workloads
 from lammps_user_conp2_tpu.models.md import build_engine
+import pytest
+
+pytestmark = pytest.mark.usefixtures("ref_decks")
 
 
 def total_energy(eng, st):

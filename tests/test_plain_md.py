@@ -13,6 +13,7 @@ from lammps_user_conp2_tpu.utils.config import (ConpConfig, FFMode, MDConfig,
                                                 Mode)
 
 
+@pytest.mark.usefixtures("ref_decks")
 def test_plain_md_no_conp():
     system, md, cfg = workloads.dilute(0)
     eng = build_engine(system, md, None)   # no charge solve: fixed charges
@@ -24,6 +25,7 @@ def test_plain_md_no_conp():
     assert np.isfinite(float(st2.energy))
 
 
+@pytest.mark.usefixtures("ref_decks")
 def test_config_validation():
     with pytest.raises(ValueError):
         ConpConfig(ff=FFMode.FFIELD, zneutr=True)   # mutually exclusive

@@ -158,22 +158,3 @@ def test_fully_periodic_grid_refresh(slab_setup):
     rho_d = _dense_spread(grid, x2, q)
     np.testing.assert_allclose(np.asarray(rho_t), np.asarray(rho_d),
                                atol=1e-11)
-
-
-def test_tile_drift_trigger(slab_setup):
-    """tile_drift_exceeded: False right after a build, False for drift
-    safely inside 90% of the dm-cell margin, True beyond it — the rebuild
-    trigger for the tile pair path (no Verlet skin bound exists there)."""
-    grid, x0, q = slab_setup
-    rng = np.random.default_rng(9)
-    x0 = jnp.asarray(x0)
-    asg = jax.jit(lambda a: P.tile_assign(grid, a))(x0)
-    trig = jax.jit(lambda a: P.tile_drift_exceeded(grid, asg, a))
-    assert not bool(trig(x0))
-    assert not bool(trig(jnp.asarray(_drift(grid, np.asarray(x0), rng,
-                                            frac=0.5 * P.TILE_DM))))
-    cells = np.array([grid.box[0] / grid.nx, grid.box[1] / grid.ny,
-                      grid.zprd_grid / grid.nz])
-    x_far = np.asarray(x0).copy()
-    x_far[0, 0] += 0.95 * P.TILE_DM * cells[0]
-    assert bool(trig(jnp.asarray(x_far)))

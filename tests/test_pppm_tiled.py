@@ -386,7 +386,7 @@ def test_zspan_bottom_stencil_fails_loud(slab_setup):
 
 
 def test_rfft3_irfft3_match_fft_f32(slab_setup):
-    """The f32 z-DFT-matmul transform pair (the TPU MXU path) agrees with
+    """The f32 z-DFT-matmul transform pair (the float32 production path) agrees with
     jnp.fft.rfftn/irfftn to f32 roundoff, both directions, odd and even nz
     Nyquist handling included (grid nz from setup_pppm is even; the second
     grid below forces an odd nz)."""
@@ -532,96 +532,3 @@ def test_engine_ad_zbin_branch(monkeypatch):
     assert calls["n"] == n32        # ...and the f64 engine did NOT take it
     sc = np.abs(f64).max()
     assert np.abs(f32 - f64).max() < 5e-5 * sc
-
-
-def test_gather3_ad_zbin_pallas_matches_xla(slab_setup):
-    """The Mosaic fused gather kernel (interpret mode on CPU) must agree
-    with the XLA tile scan to f32 roundoff on the span-mode slab grid."""
-    grid, x, q, n = slab_setup
-    x32, q32 = x.astype(jnp.float32), q.astype(jnp.float32)
-    slots = jax.jit(lambda a, b: P.tile_slots(grid, a, b))(x32, q32)
-    rhok = jax.jit(
-        lambda a: P._spread_rhok_tiled(grid, a, slots=slots))(x32)
-    _, uz = jax.jit(
-        lambda r: P.pppm_energy_u_zbin(grid, r, x32.shape[0]))(rhok)
-    f_ref = np.asarray(jax.jit(
-        lambda u, a: P.gather3_ad_zbin(grid, u, a, slots=slots,
-                                       use_pallas=False))(uz, x32))
-    f_got = np.asarray(jax.jit(
-        lambda u, a: P.gather3_ad_zbin(grid, u, a, slots=slots,
-                                       use_pallas=True,
-                                       interpret=True))(uz, x32))
-    sc = np.abs(f_ref).max()
-    assert np.abs(f_got - f_ref).max() < 2e-6 * sc
-
-
-def test_gather3_ad_zbin_pallas_periodic(slab_setup):
-    """Same equivalence on a fully periodic (roll-merge) geometry."""
-    rng = np.random.default_rng(13)
-    box = (30.0, 30.0, 30.0)
-    n = 1200
-    x = jnp.asarray(rng.uniform(0, 30, size=(n, 3)), jnp.float32)
-    q = jnp.asarray(rng.normal(size=n), jnp.float32)
-    grid = P.setup_pppm(box=box, box_lo=(0.0, 0.0, 0.0), accuracy_abs=1e-4,
-                        natoms=n, q2=float(np.sum(np.asarray(q) ** 2)),
-                        cutoff=8.0, slabflag=False)
-    assert not P._tile_geometry(grid, n).z_span
-    slots = jax.jit(lambda a, b: P.tile_slots(grid, a, b))(x, q)
-    rhok = jax.jit(lambda a: P._spread_rhok_tiled(grid, a, slots=slots))(x)
-    _, uz = jax.jit(lambda r: P.pppm_energy_u_zbin(grid, r, n))(rhok)
-    f_ref = np.asarray(jax.jit(
-        lambda u, a: P.gather3_ad_zbin(grid, u, a, slots=slots,
-                                       use_pallas=False))(uz, x))
-    f_got = np.asarray(jax.jit(
-        lambda u, a: P.gather3_ad_zbin(grid, u, a, slots=slots,
-                                       use_pallas=True,
-                                       interpret=True))(uz, x))
-    sc = np.abs(f_ref).max()
-    assert np.abs(f_got - f_ref).max() < 2e-6 * sc
-
-
-def test_spread_pallas_matches_xla(slab_setup):
-    """The Mosaic fused spread kernel (interpret mode on CPU) must agree
-    with the XLA tile scan to f32 roundoff on the span-mode slab grid —
-    both through the real-mesh spread and the fused rhok path."""
-    grid, x, q, n = slab_setup
-    x32, q32 = x.astype(jnp.float32), q.astype(jnp.float32)
-    slots = jax.jit(lambda a, b: P.tile_slots(grid, a, b))(x32, q32)
-    rho_ref = np.asarray(jax.jit(
-        lambda a: P.spread_tiled(grid, a, slots=slots,
-                                 use_pallas=False))(x32))
-    rho_got = np.asarray(jax.jit(
-        lambda a: P.spread_tiled(grid, a, slots=slots, use_pallas=True,
-                                 interpret=True))(x32))
-    sc = np.abs(rho_ref).max()
-    assert np.abs(rho_got - rho_ref).max() < 2e-6 * sc
-    rk_ref = np.asarray(jax.jit(
-        lambda a: P._spread_rhok_tiled(grid, a, slots=slots,
-                                       use_pallas=False))(x32))
-    rk_got = np.asarray(jax.jit(
-        lambda a: P._spread_rhok_tiled(grid, a, slots=slots,
-                                       use_pallas=True,
-                                       interpret=True))(x32))
-    sck = np.abs(rk_ref).max()
-    assert np.abs(rk_got - rk_ref).max() < 2e-6 * sck
-
-
-def test_spread_pallas_periodic():
-    """Same equivalence on a fully periodic (roll-merge) geometry."""
-    rng = np.random.default_rng(29)
-    box = (30.0, 30.0, 30.0)
-    n = 1200
-    x = jnp.asarray(rng.uniform(0, 30, size=(n, 3)), jnp.float32)
-    q = jnp.asarray(rng.normal(size=n), jnp.float32)
-    grid = P.setup_pppm(box=box, box_lo=(0.0, 0.0, 0.0), accuracy_abs=1e-4,
-                        natoms=n, q2=float(np.sum(np.asarray(q) ** 2)),
-                        cutoff=8.0, slabflag=False)
-    slots = jax.jit(lambda a, b: P.tile_slots(grid, a, b))(x, q)
-    rho_ref = np.asarray(jax.jit(
-        lambda a: P.spread_tiled(grid, a, slots=slots,
-                                 use_pallas=False))(x))
-    rho_got = np.asarray(jax.jit(
-        lambda a: P.spread_tiled(grid, a, slots=slots, use_pallas=True,
-                                 interpret=True))(x))
-    sc = np.abs(rho_ref).max()
-    assert np.abs(rho_got - rho_ref).max() < 2e-6 * sc

@@ -16,6 +16,8 @@ from lammps_user_conp2_tpu.models.conp import setup_conp
 from lammps_user_conp2_tpu.models.md import build_engine
 from lammps_user_conp2_tpu.models.system import electrodes_first, reorder_atoms
 
+pytestmark = pytest.mark.usefixtures("ref_decks")
+
 
 def _traj(system, md, cfg, steps=25):
     solver = setup_conp(system, md, cfg)

@@ -23,6 +23,8 @@ from lammps_user_conp2_tpu.models.diagnostics import potential_atom
 from lammps_user_conp2_tpu.models.md import build_engine
 from lammps_user_conp2_tpu.utils import dump as dumpio
 
+pytestmark = pytest.mark.usefixtures("ref_decks")
+
 pytestmark = pytest.mark.slow
 
 GEW = 0.35  # the deck's kspace_modify gewald pin

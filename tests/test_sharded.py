@@ -1,5 +1,5 @@
 """Shard-count invariance: the 8-device sharded step must reproduce the
-single-device step (the TPU analogue of the reference's 1/2/4-rank MPI
+single-device step (the analogue of the reference's 1/2/4-rank MPI
 invariance tests, tests/zmirror/input:13-15)."""
 
 import jax
@@ -26,6 +26,7 @@ def engines():
     return eng, sheng
 
 
+@pytest.mark.usefixtures("ref_decks")
 def test_sharded_step_matches_single_device(engines):
     eng, sheng = engines
     st = eng.init_state()
@@ -40,6 +41,7 @@ def test_sharded_step_matches_single_device(engines):
     assert abs(float(s8.scalar_out) - float(s1.scalar_out)) < 1e-12
 
 
+@pytest.mark.usefixtures("ref_decks")
 def test_sharded_multi_step_trajectory(engines):
     eng, sheng = engines
     st = eng.init_state()
@@ -53,6 +55,7 @@ def test_sharded_multi_step_trajectory(engines):
     assert np.isfinite(float(np.asarray(th["temp"])[-1]))
 
 
+@pytest.mark.usefixtures("ref_decks")
 def test_sharded_pppm_mode():
     """PPPM-mode solve under shard_map (mesh replicated, A^-1 rows sharded)."""
     import dataclasses
@@ -83,6 +86,7 @@ _MATRIX = [
 ]
 
 
+@pytest.mark.usefixtures("ref_decks")
 @pytest.mark.parametrize("solver_name,kspace_name", _MATRIX)
 def test_sharded_solver_matrix(solver_name, kspace_name):
     """8-dev == 1-dev for every solver x kspace x {dense, cell} combination."""
@@ -96,8 +100,7 @@ def test_sharded_solver_matrix(solver_name, kspace_name):
     conp = setup_conp(system, mdx, cfgx)
     mesh = Mesh(np.array(jax.devices()[:8]), ("s",))
     for pair_path in ("dense", "cell", "nlist"):
-        mdp = dataclasses.replace(mdx, pair_path=pair_path,
-                                  use_pallas_pair=False)
+        mdp = dataclasses.replace(mdx, pair_path=pair_path)
         eng = build_engine(system, mdp, conp)
         if pair_path == "cell":
             assert eng.cell_grid is not None
@@ -116,6 +119,7 @@ def test_sharded_solver_matrix(solver_name, kspace_name):
         assert np.isfinite(float(s8.energy))
 
 
+@pytest.mark.usefixtures("ref_decks")
 def test_sharded_cond_shake_feedback():
     """COND + ffield + PPPM + SHAKE + feedback efield sharded == single —
     the mode the reference's own MPI test pins to 2 ranks
@@ -135,6 +139,7 @@ def test_sharded_cond_shake_feedback():
     np.testing.assert_allclose(np.asarray(s8.v), np.asarray(s1.v), atol=1e-12)
 
 
+@pytest.mark.usefixtures("ref_decks")
 def test_sharded_conq_zmirror():
     """CONQ + zmirror + doubled cell sharded == single (the reference's
     zmirror deck is its rank-invariance test, tests/zmirror/input:13-15)."""
@@ -162,8 +167,7 @@ def test_sharded_trajectory_with_reneighbor():
                                           lz=80.0, lxy=56.0)
     assert system.natoms % 8 != 0
     cfgx = dataclasses.replace(cfg, solver=Solver.CG_MATFREE)
-    mdx = dataclasses.replace(md, pair_path="nlist", neighbor_skin=0.2,
-                              use_pallas_pair=False)
+    mdx = dataclasses.replace(md, pair_path="nlist", neighbor_skin=0.2)
     conp = setup_conp(system, mdx, cfgx)
     eng = build_engine(system, mdx, conp)
     assert eng.ncfg is not None
@@ -190,6 +194,7 @@ def test_sharded_trajectory_with_reneighbor():
     assert np.isfinite(float(s8.energy))
 
 
+@pytest.mark.usefixtures("ref_decks")
 @pytest.mark.parametrize("d", [2, 4])
 def test_sharded_invariance_shard_counts(d):
     """d-device == 1-device for the production CG_MATFREE x PPPM x nlist
@@ -205,8 +210,7 @@ def test_sharded_invariance_shard_counts(d):
     cfgx = dataclasses.replace(cfg, solver=Solver.CG_MATFREE,
                                kspace=KSpaceStyle.PPPM)
     mdx = dataclasses.replace(md, pair_path="nlist",
-                              kspace_style=KSpaceStyle.PPPM,
-                              use_pallas_pair=False)
+                              kspace_style=KSpaceStyle.PPPM)
     conp = setup_conp(system, mdx, cfgx)
     eng = build_engine(system, mdx, conp)
     mesh = Mesh(np.array(jax.devices()[:d]), ("s",))
@@ -223,11 +227,10 @@ def test_sharded_invariance_shard_counts(d):
 
 def test_sharded_tiled_mesh_block_fast_paths():
     """The sharded engine on a TILED PPPM mesh with the block list and the
-    persistent per-device tile assignment — the round-3 fast paths,
-    distributed (VERDICT r3 #4).  8.5k atoms force the tiled mesh
-    (_use_dense False), pair_path='block' keeps the block fields through
-    the sharded sweep, float32 engages the z-binned spread/gather branch
-    (kernels auto-disable off-TPU; the XLA twins run here), and two run()
+    persistent per-device tile assignment — the single-chip fast paths,
+    distributed.  8.5k atoms force the tiled mesh (_use_dense False),
+    pair_path='block' keeps the block fields through the sharded sweep,
+    float32 engages the z-binned spread/gather branch, and two run()
     steps traverse the persistent-assignment refresh."""
     import dataclasses
     from lammps_user_conp2_tpu.ops import pppm as pppm_ops
@@ -271,8 +274,7 @@ def test_sharded_matfree_synthetic_largeish():
         # "block": both engines sweep the block-compacted list (the sharded
         # engine slices the block axis per device, block_pair_rows) — this
         # also pins block-vs-nlist physics agreement through a full step
-        mdx = dataclasses.replace(md, pair_path=pair_path,
-                                  use_pallas_pair=False)
+        mdx = dataclasses.replace(md, pair_path=pair_path)
         conp = setup_conp(system, mdx, cfgx)
         eng = build_engine(system, mdx, conp)
         sheng = build_sharded_engine(eng, mesh)

@@ -7,6 +7,8 @@ import pytest
 from lammps_user_conp2_tpu import workloads
 from lammps_user_conp2_tpu.models.conp import setup_conp
 
+pytestmark = pytest.mark.usefixtures("ref_decks")
+
 
 @pytest.mark.parametrize("wl,n", [
     ("il_onelayer", 4),   # ffield + pppm + EHGO (fix_modify kappa 0 / auto)

@@ -12,6 +12,8 @@ from lammps_user_conp2_tpu import workloads
 from lammps_user_conp2_tpu.models.conp import setup_conp
 from lammps_user_conp2_tpu.models.md import build_engine
 
+pytestmark = pytest.mark.usefixtures("ref_decks")
+
 
 @pytest.mark.parametrize("n", [2])
 def test_zmirror_preserves_symmetry(n):

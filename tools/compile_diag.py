@@ -2,9 +2,9 @@
 """Compile-latency diagnostic for the 100k production step program.
 
 Traces (without compiling) the engine's chained run program at the
-bench_large configuration, then reports the StableHLO module size and the
-op-frequency histogram — the "count HLO ops" step of hunting a >20 min
-cold compile (VERDICT round 3, missing #1).
+workloads.capacitor_100k configuration, then reports the StableHLO module
+size and the op-frequency histogram — the "count HLO ops" step of hunting
+a slow cold compile.
 
 Usage: python tools/compile_diag.py [natoms_elyte] [nsteps] [--compile]
 """
@@ -13,7 +13,6 @@ import os
 import re
 import sys
 import time
-import dataclasses
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -23,11 +22,10 @@ import jax.numpy as jnp
 from lammps_user_conp2_tpu import workloads
 from lammps_user_conp2_tpu.models.conp import setup_conp
 from lammps_user_conp2_tpu.models.md import build_engine
-from lammps_user_conp2_tpu.utils.config import KSpaceStyle, Solver
 
 
 def histogram(text):
-    ops = collections.Counter(re.findall(r"stablehlo\.\w+|\"tpu\.\w+|func\.call", text))
+    ops = collections.Counter(re.findall(r"stablehlo\.\w+|func\.call", text))
     return ops
 
 
@@ -36,11 +34,7 @@ def main():
     nsteps = int(sys.argv[2]) if len(sys.argv) > 2 else 20
     do_compile = "--compile" in sys.argv
     t0 = time.time()
-    system, md, cfg = workloads.synthetic(
-        n_elyte=n_elyte, nele_side=23, lz=240.0, lxy=120.0)
-    cfg = dataclasses.replace(cfg, solver=Solver.INV, kspace=KSpaceStyle.PPPM)
-    md = dataclasses.replace(md, pair_path="auto",
-                             kspace_style=KSpaceStyle.PPPM)
+    system, md, cfg = workloads.capacitor_100k(n_elyte=n_elyte)
     conp = setup_conp(system, md, cfg, solve_dtype=jnp.float32)
     eng = build_engine(system, md, conp, dtype=jnp.float32)
     print(f"setup done {time.time()-t0:.0f}s", file=sys.stderr, flush=True)
